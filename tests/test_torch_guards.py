@@ -1,0 +1,63 @@
+"""Guards of the torch port: it imports neither JAX nor the JAX package,
+its entry points default to the card and refuse to fall back to the CPU,
+and chip_smoke.py refuses to run without a card."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCK_AND_IMPORT = r"""
+import importlib, importlib.util, pkgutil, sys
+
+class Block:
+  def find_spec(self, name, path=None, target=None):
+    if name.split(".")[0] in ("jax", "jaxlib", "flax", "vision4leg_tpu"):
+      raise ImportError(f"blocked import of {name}")
+    return None
+
+sys.meta_path.insert(0, Block())
+import vision4leg_torch
+names = [m.name for m in pkgutil.walk_packages(vision4leg_torch.__path__,
+                                               "vision4leg_torch.")]
+for n in names:
+  importlib.import_module(n)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "vision4leg_tpu"))
+assert not leaked, leaked
+print("imported", len(names), "modules")
+"""
+
+
+def test_port_and_smoke_script_import_without_jax():
+  proc = subprocess.run([sys.executable, "-c", _BLOCK_AND_IMPORT], cwd=ROOT,
+                        capture_output=True, text=True, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  n = int(proc.stdout.split()[1])
+  assert n >= 20
+
+
+def test_default_device_entry_points_raise_without_a_card():
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA card is present: the default device is valid")
+  from vision4leg_torch import resolve_device
+  from vision4leg_torch.envs.get_env import get_env
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    resolve_device()
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    get_env("A1MoveGround", {"env_build": {}})
+  assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card():
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA card is present")
+  proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                        capture_output=True, text=True, timeout=300)
+  assert proc.returncode != 0
+  assert '"ok"' not in proc.stdout

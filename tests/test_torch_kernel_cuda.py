@@ -1,0 +1,75 @@
+"""The CUDA physics-window kernel against its plain PyTorch version, on
+the card (skipped without one: run `python -m pytest tests/ -m cuda` on
+the card).  The comparison is `physics_kernel.compare_with_plain`."""
+import numpy as np
+import pytest
+import torch
+
+from vision4leg_torch.ops import physics_kernel as pk
+from vision4leg_torch.physics import engine
+from vision4leg_torch.robots import a1, a1_model
+
+
+@pytest.fixture
+def cuda():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sph", [0, 2])
+def test_kernel_matches_plain(cuda, n_sph):
+  E = 101                      # three full warps and a ragged one
+  rng = np.random.default_rng(0)
+  model = a1_model.build(dt=0.0025, device=cuda)
+  t = lambda x: torch.tensor(np.asarray(x, np.float32), device=cuda)
+  q0 = np.array([0, 0.9, -1.8] * 4, np.float32)
+  phys = engine.PhysState(
+      pos=t(np.c_[rng.uniform(-0.1, 0.1, (E, 2)), np.full(E, 0.27)]),
+      quat=t(np.tile([1.0, 0, 0, 0], (E, 1))),
+      joint_q=t(q0 + rng.uniform(-0.1, 0.1, (E, 12))),
+      ang=t(rng.normal(0, 0.2, (E, 3))), lin=t(rng.normal(0, 0.2, (E, 3))),
+      joint_qd=t(rng.normal(0, 0.5, (E, 12))))
+  rs = a1.init_robot_state(phys)
+  dyn = a1.DynamicsParams(
+      kp=t(np.full((E, 12), 60.0)), kd=t(np.full((E, 12), 0.6)),
+      strength_ratios=t(rng.uniform(0.8, 1.2, (E, 12))),
+      motor_friction=t(rng.uniform(0, 0.05, E)),
+      joint_friction=t(rng.uniform(0, 0.05, E)),
+      control_latency=t(np.zeros(E)), lateral_friction=t(np.ones(E)),
+      mass_scale=t(rng.uniform(0.8, 1.2, (E, 13))),
+      inertia_scale=t(rng.uniform(0.5, 1.5, (E, 13))))
+  boxes = np.zeros((E, 8, 8), np.float32)
+  boxes[:, 0] = [0.15, 0.0, 0.05, 0.1, 0.1, 0.05, 0.3, 1.0]
+  spheres = np.zeros((E, n_sph, 5), np.float32)
+  if n_sph:
+    spheres[:, 0] = [-0.18, 0.13, 0.0, 0.12, 1.0]
+  cmd = t(q0 + rng.uniform(-0.3, 0.3, (E, 12)))
+  args = (model, rs, cmd, dyn, t(boxes), t(spheres), t(np.ones(E)),
+          t(np.ones(E)), 16)
+  before = pk.robot_window.launches
+  pk.robot_window(*args)
+  torch.cuda.synchronize()
+  assert pk.robot_window.launches == before + 1
+  ok, report = pk.compare_with_plain(args)
+  assert ok, report
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_inputs(cuda):
+  model = a1_model.build(device=cuda)
+  E = 32
+  rs = a1.init_robot_state(engine.zero_state(model, (E,)))
+  dyn = a1.default_dynamics(model, (E,))
+  ok = (model, rs, torch.zeros(E, 12, device=cuda), dyn,
+        torch.zeros(E, 8, 8, device=cuda), torch.zeros(E, 0, 5, device=cuda),
+        torch.ones(E, device=cuda), torch.ones(E, device=cuda), 16)
+  bad = list(ok)
+  bad[2] = torch.zeros(E, 12, device=cuda, dtype=torch.float64)
+  with pytest.raises(TypeError, match="float32 like pos"):
+    pk.robot_window(*bad)
+  bad = list(ok)
+  bad[6] = torch.ones(E)
+  with pytest.raises(ValueError, match="cpu"):
+    pk.robot_window(*bad)

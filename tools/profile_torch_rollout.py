@@ -1,0 +1,146 @@
+"""Where the time of one thin-goal rollout of the torch port goes, on the card.
+
+    python3 tools/profile_torch_rollout.py
+
+Builds the main path as chip_smoke.py does (thin-goal JSON, 1024 envs,
+LocoTransformer at full width, random weights from a seed), runs one
+rollout to warm up, times two more without the profiler, then profiles
+one with torch.profiler.  Spans named here wrap the layers' entry points
+(env.reset, env.step_batch, the physics window's CUDA launch, the camera,
+the policy); the program itself carries no spans.  Prints the card, the
+steady-state env-steps/s, the share of the profiled rollout's wall time
+that kernels ran on the card, each span's host milliseconds and its range
+on the device timeline, and the top CUDA kernels, then one JSON line with
+the same numbers.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def _device_us(evt) -> float:
+  for name in ("self_device_time_total", "self_cuda_time_total"):
+    if hasattr(evt, name):
+      return float(getattr(evt, name))
+  return 0.0
+
+
+def _is_kernel(evt) -> bool:
+  """Events that ran on the card (kernels, copies), not host ops whose
+  device time is also summed from their kernels."""
+  return str(getattr(evt, "device_type", "")).endswith("CUDA")
+
+
+def _device_total_us(evt) -> float:
+  for name in ("device_time_total", "cuda_time_total"):
+    if hasattr(evt, name):
+      return float(getattr(evt, name))
+  return 0.0
+
+
+def main() -> int:
+  import torch
+  if not torch.cuda.is_available():
+    print("profile_torch_rollout: no CUDA device", file=sys.stderr)
+    return 2
+  from torch.profiler import ProfilerActivity, profile, record_function
+
+  import chip_smoke
+  from vision4leg_torch.collector import rollout as rollout_lib
+  from vision4leg_torch.ops import physics_kernel as pk
+
+  card = subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit",
+       "--format=csv,noheader"], capture_output=True, text=True,
+      check=True).stdout.strip().splitlines()[0]
+  print(card, flush=True)
+  dev = torch.device("cuda")
+  env, meta, net, params = chip_smoke.build_main_path(dev)
+
+  def span(name, fn):
+    def wrapped(*args, **kwargs):
+      with record_function(name):
+        return fn(*args, **kwargs)
+    return wrapped
+
+  spans = ("env.reset", "env.step_batch", "physics_window", "camera",
+           "policy.pi_v")
+  env.reset = span("env.reset", env.reset)
+  env.step_batch = span("env.step_batch", env.step_batch)
+  env._render = span("camera", env._render)
+  # robot_window keeps its launch count on itself: wrap the launch inside
+  pk._launch = span("physics_window", pk._launch)
+  net.pi_v = span("policy.pi_v", net.pi_v)
+  rollout = chip_smoke.make_rollout(env, meta, net, params)
+  n = chip_smoke.NUM_ENVS
+  horizon = params["collector"]["epoch_frames"] // n
+
+  gen = torch.Generator(device=dev).manual_seed(0)
+  cs = rollout_lib.init_collector(env, n, gen)
+  cs, _, _ = rollout(cs)                       # warm-up
+  walls = []
+  for _ in range(2):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cs, _, _ = rollout(cs)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t)
+  rate = [horizon * n / w for w in walls]
+  print(f"steady rollouts: {horizon} steps x {n} envs in "
+        + ", ".join(f"{w:.4f}s" for w in walls) + " = "
+        + ", ".join(f"{r:.1f}" for r in rate) + f" env-steps/s on {card}",
+        flush=True)
+
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+      as prof:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cs, _, _ = rollout(cs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+  avgs = prof.key_averages()
+  # each span appears twice: its host range and its range on the device
+  # timeline (first to last kernel inside it, gaps included)
+  span_ms = {name: dict(calls=0, host_ms=0.0, device_range_ms=0.0)
+             for name in spans}
+  for e in avgs:
+    if e.key in span_ms:
+      d = span_ms[e.key]
+      if _is_kernel(e):
+        d["device_range_ms"] = _device_us(e) / 1e3
+      else:
+        d["calls"] = e.count
+        d["host_ms"] = e.cpu_time_total / 1e3
+  kernels = [e for e in avgs if _is_kernel(e) and e.key not in span_ms]
+  device_us = sum(_device_us(e) for e in kernels)
+  busy = device_us / (wall * 1e6)
+  print(f"profiled rollout: wall {wall * 1e3:.2f} ms, device kernels "
+        f"{device_us / 1e3:.2f} ms = {busy:.4f} of wall (profiler on)",
+        flush=True)
+  for name, d in span_ms.items():
+    print(f"  span {name:16s} calls {d['calls']:3d} host "
+          f"{d['host_ms']:9.2f} ms, on the device timeline "
+          f"{d['device_range_ms']:9.2f} ms", flush=True)
+  kernels = sorted(kernels, key=_device_us, reverse=True)[:15]
+  for e in kernels:
+    print(f"  kernel {_device_us(e) / 1e3:9.3f} ms x{e.count:5d} "
+          f"{e.key[:90]}", flush=True)
+  print(json.dumps(dict(
+      card=card, envs=n, steps=horizon, steady_wall_s=walls,
+      steady_env_steps_per_s=rate, profiled_wall_ms=wall * 1e3,
+      device_kernel_ms=device_us / 1e3, device_busy_share=busy,
+      spans=span_ms,
+      top_kernels=[dict(name=e.key, device_ms=_device_us(e) / 1e3,
+                        calls=e.count) for e in kernels])), flush=True)
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

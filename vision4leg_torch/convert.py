@@ -1,0 +1,129 @@
+"""Conversions from numpy arrays (e.g. the JAX package's state and flax
+parameters pulled to the host) into this package's tensors.
+
+Nothing here imports JAX: inputs are numpy arrays, or objects whose
+attributes are numpy arrays and that mirror the JAX package's state
+classes field by field (`RobotState.phys.pos`, `DynamicsParams.kp`, ...).
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from vision4leg_torch.envs.terrain import TerrainState
+from vision4leg_torch.physics import engine
+from vision4leg_torch.robots import a1
+
+
+def tensor(x, device="cpu") -> torch.Tensor:
+  """float32, or int32 for integer arrays."""
+  arr = np.array(x)
+  dtype = torch.int32 if arr.dtype.kind in "iu" else torch.float32
+  return torch.tensor(arr, dtype=dtype, device=device)
+
+
+def phys_state(ps, device="cpu") -> engine.PhysState:
+  return engine.PhysState(**{
+      f: tensor(getattr(ps, f), device)
+      for f in ("pos", "quat", "joint_q", "ang", "lin", "joint_qd")})
+
+
+def robot_state(rs, device="cpu") -> a1.RobotState:
+  return a1.RobotState(
+      phys=phys_state(rs.phys, device),
+      obs_hist=tensor(rs.obs_hist, device),
+      observed_torques=tensor(rs.observed_torques, device),
+      last_robot_action=tensor(rs.last_robot_action, device),
+      step_counter=tensor(rs.step_counter, device))
+
+
+def dynamics(dyn, device="cpu") -> a1.DynamicsParams:
+  return a1.DynamicsParams(**{
+      f: tensor(getattr(dyn, f), device)
+      for f in ("kp", "kd", "strength_ratios", "motor_friction",
+                "joint_friction", "control_latency", "lateral_friction",
+                "mass_scale", "inertia_scale")})
+
+
+def terrain(ts, device="cpu") -> TerrainState:
+  spheres = getattr(ts, "obstacle_spheres", None)
+  return TerrainState(
+      boxes=tensor(ts.boxes, device), subgoals=tensor(ts.subgoals, device),
+      goal_pos=tensor(ts.goal_pos, device),
+      obstacle_spheres=(tensor(spheres, device) if spheres is not None
+                        else torch.zeros(
+                            np.shape(ts.boxes)[:-2] + (0, 5), device=device)))
+
+
+# ---------------------------------------------------------------------------
+# flax LocoTransformerActorCritic params -> torch state_dict
+# ---------------------------------------------------------------------------
+
+def _dense(sd, prefix, p):
+  """flax Dense kernel (in, out) -> torch Linear weight (out, in)."""
+  sd[prefix + ".weight"] = torch.tensor(np.asarray(p["kernel"]).T.copy())
+  sd[prefix + ".bias"] = torch.tensor(np.asarray(p["bias"]).copy())
+
+
+def _conv(sd, prefix, p):
+  """flax Conv kernel HWIO -> torch Conv2d OIHW."""
+  sd[prefix + ".weight"] = torch.tensor(
+      np.ascontiguousarray(np.asarray(p["kernel"]).transpose(3, 2, 0, 1)))
+  sd[prefix + ".bias"] = torch.tensor(np.asarray(p["bias"]).copy())
+
+
+def _mlp(sd, prefix, p):
+  """Dense_0..Dense_{n-1} of a flax MLP -> ModuleList entries 0..n-1."""
+  n = sum(1 for k in p if k.startswith("Dense_"))
+  for i in range(n):
+    _dense(sd, f"{prefix}.{i}", p[f"Dense_{i}"])
+
+
+def _attention_layer(sd, prefix, p):
+  """flax MultiHeadDotProductAttention: query/key/value kernels
+  (D, heads, head_dim) and biases (heads, head_dim); out kernel (heads,
+  head_dim, D).  Torch layer keeps heads x head_dim flattened, head-major
+  (as flax reshapes), in Linear layout (out, in)."""
+  att = p["MultiHeadDotProductAttention_0"]
+  for name in ("query", "key", "value"):
+    k = np.asarray(att[name]["kernel"])
+    d = k.shape[0]
+    _dense(sd, f"{prefix}.{name}", dict(kernel=k.reshape(d, -1),
+                                        bias=np.asarray(
+                                            att[name]["bias"]).reshape(-1)))
+  k = np.asarray(att["out"]["kernel"])
+  _dense(sd, f"{prefix}.out", dict(kernel=k.reshape(-1, k.shape[-1]),
+                                   bias=att["out"]["bias"]))
+  for i in (0, 1):
+    ln = p[f"LayerNorm_{i}"]
+    sd[f"{prefix}.norm{i + 1}.weight"] = torch.tensor(
+        np.asarray(ln["scale"]).copy())
+    sd[f"{prefix}.norm{i + 1}.bias"] = torch.tensor(
+        np.asarray(ln["bias"]).copy())
+  _dense(sd, f"{prefix}.ff1", p["Dense_0"])
+  _dense(sd, f"{prefix}.ff2", p["Dense_1"])
+
+
+def params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
+  """state_dict of models.actor_critic.LocoTransformerActorCritic from the
+  flax module's params (`variables["params"]`, or the whole variables dict)
+  pulled to numpy; layer counts are read from the params.  The torch
+  LayerNorms use eps 1e-6 like flax's."""
+  p = np_params.get("params", np_params)
+  sd: Dict[str, torch.Tensor] = {}
+  enc = p["encoder"]
+  _mlp(sd, "encoder.state_mlp.layers", enc["MLPBase_0"])
+  _dense(sd, "encoder.state_proj", enc["RLProjection_0"]["Dense_0"])
+  nat = enc["NatureEncoder_0"]
+  for i in range(3):
+    _conv(sd, f"encoder.nature.convs.{i}", nat[f"Conv_{i}"])
+  _conv(sd, "encoder.token_conv", enc["Conv_0"])
+  n_layers = sum(1 for k in p if k.startswith("pf_layers_"))
+  for side in ("pf", "vf"):
+    for li in range(n_layers):
+      _attention_layer(sd, f"{side}_layers.{li}", p[f"{side}_layers_{li}"])
+    _mlp(sd, f"{side}_mlp.layers", p[f"{side}_mlp"])
+  sd["logstd"] = torch.tensor(np.asarray(p["head"]["logstd"]).copy())
+  return sd

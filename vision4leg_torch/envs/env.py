@@ -1,0 +1,435 @@
+"""A1MoveGround as batched torch reset/step (mirror of
+vision4leg_tpu.envs.env on the physics kernel's path).
+
+The reference's `LocomotionGymEnv` (locomotion_gym_env_with_rich_
+information.py) with the wrappers `build_a1_ground_env` stacks
+(ActionRestrain clip, DiagonalAction, env_builder.py:40-107).  Every
+EnvState field carries a leading env axis; `reset` builds a batch of envs
+and `step_batch` steps them all through one physics-window launch
+(`ops.physics_kernel.robot_window`).
+
+Observation layout (sorted sensor names, env_utils.py:27-50):
+  [GoalPos(6)?] [HSW(BaseDisplacement)(9)?] [HSW(IMU)(12)]
+  [HSW(LastAction)(36)?] [HSW(MotorAngle)(36)] [raw_img(4*64*64)?]
+
+Randomness: every draw goes through `draw_reset` and `draw_blind_spots`
+from an explicit torch.Generator; a test substitutes them to replay the
+JAX package's draws.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vision4leg_torch import resolve_device
+from vision4leg_torch.envs import camera as cam
+from vision4leg_torch.envs import dynamics_rando, tasks
+from vision4leg_torch.envs import terrain as terr
+from vision4leg_torch.ops import physics_kernel
+from vision4leg_torch.physics import contact, engine, maths
+from vision4leg_torch.robots import a1, a1_model
+from vision4leg_torch.robots import a1_params as P
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvConfig:
+  """Static env configuration: the `env_build` section of the reference
+  JSON (env_builder.py:159-203), same fields as the JAX package's."""
+  motor_control_mode: str = "POSITION"
+  z_constrain: bool = False
+  other_direction_penalty: float = 0.0
+  z_penalty: float = 0.0
+  clip_num: Optional[tuple] = None
+  diagonal_act: bool = False
+  num_action_repeat: int = 10
+  time_step_s: float = 0.001
+  add_last_action_input: bool = False
+  enable_action_interpolation: bool = False
+  enable_action_filter: bool = False
+  domain_randomization: bool = False
+  get_image: bool = False
+  depth_image: bool = False
+  depth_norm: bool = False
+  grayscale: bool = True
+  rgbd: bool = False
+  fric_coeff: tuple = (0.8, 0.1, 0.1)
+  terrain_type: str = "plane"
+  alive_reward: float = 0.1
+  fall_reward: float = 0.0
+  target_vel: float = 1.0
+  random_init_range: float = 0.0
+  check_contact: bool = False
+  frame_extract: int = 1
+  goal: bool = False
+  subgoal: bool = False
+  goal_coeff: float = 10.0
+  subgoal_reward: Optional[float] = None
+  no_displacement: bool = False
+  get_image_interval: int = 1
+  reset_frame_idx: bool = False
+  reset_frame_idx_each_step: bool = False
+  random_shape: bool = False
+  moving: bool = False
+  curriculum: bool = False
+  interpolation: bool = False
+  fixed_delay_observation: bool = False
+  empty_image: bool = False
+  random_dir: bool = False
+  dir_update_interval: Optional[int] = None
+  rotate_sensor: bool = False
+  record_video: bool = False
+  settle_steps: int = 400
+  substeps: int = 1
+
+  def __post_init__(self):
+    if self.terrain_type in ("mount", "random_hill"):
+      object.__setattr__(self, "check_contact", True)
+
+  @property
+  def action_dim(self) -> int:
+    return 6 if self.diagonal_act else 12
+
+  @property
+  def num_stored_frames(self) -> int:
+    return 4 * self.frame_extract
+
+  @property
+  def proprio_dim(self) -> int:
+    d = 12 + 36
+    if self.goal:
+      d += 6
+    if not self.no_displacement:
+      d += 9
+    if self.add_last_action_input:
+      d += 36
+    return d
+
+  @property
+  def image_dim(self) -> int:
+    return 4 * 64 * 64 if self.get_image else 0
+
+  @property
+  def obs_dim(self) -> int:
+    return self.proprio_dim + self.image_dim
+
+
+# options of the JAX env this port does not run yet (ROADMAP queue 1 item 9)
+_UNPORTED = ("enable_action_filter", "reset_frame_idx",
+             "reset_frame_idx_each_step", "random_shape", "moving",
+             "interpolation", "random_dir", "rotate_sensor")
+
+
+class BlindSpots(NamedTuple):
+  num: torch.Tensor   # (E,) int, spots in [3, 30)
+  idx: torch.Tensor   # (E, 30, 2) int, (row, col)
+
+
+class ResetDraws(NamedTuple):
+  """All randomness of a reset."""
+  terrain: terr.TerrainState
+  dyn: a1.DynamicsParams
+  init_jitter: torch.Tensor   # (E, 2) xy offset of the start position
+  blind: BlindSpots
+
+
+@dataclasses.dataclass
+class EnvState:
+  robot: a1.RobotState
+  dyn: a1.DynamicsParams
+  terrain: terr.TerrainState
+  task: tasks.TaskState
+  motor_hist: torch.Tensor        # (E, 3, 12) newest first
+  imu_hist: torch.Tensor          # (E, 3, 4)
+  disp_hist: torch.Tensor         # (E, 3, 3)
+  last_action_hist: torch.Tensor  # (E, 3, 12)
+  last_action: torch.Tensor       # (E, 12)
+  last_base_pos: torch.Tensor     # (E, 3)
+  frames: torch.Tensor            # (E, num_stored, 64, 64) or (E, 1, 1, 1)
+  step_counter: torch.Tensor      # (E,) int32
+
+  def replace(self, **kw) -> "EnvState":
+    return dataclasses.replace(self, **kw)
+
+
+def select(mask, new, old):
+  """Per-env choice between two pytrees of dataclasses / tensors."""
+  if isinstance(new, torch.Tensor):
+    m = mask.reshape(mask.shape + (1,) * (new.dim() - 1))
+    return torch.where(m, new, old)
+  return type(new)(**{f.name: select(mask, getattr(new, f.name),
+                                     getattr(old, f.name))
+                      for f in dataclasses.fields(new)})
+
+
+class A1GymEnv:
+  """Batched A1MoveGround on one device."""
+
+  NEAR_BOXES = 8   # boxes kept per env for contacts (nearest by surface)
+
+  def __init__(self, cfg: EnvConfig, device=None):
+    if cfg.motor_control_mode != "POSITION":
+      raise NotImplementedError("only POSITION control for the RL env")
+    if cfg.rgbd:
+      raise NotImplementedError(
+          "rgbd=True: the JAX env accepts and ignores it; the port rejects "
+          "it (ROADMAP queue 3)")
+    if cfg.terrain_type not in terr.TERRAIN_GENERATORS:
+      raise NotImplementedError(
+          f"terrain {cfg.terrain_type!r} is not ported yet; non-flat and "
+          "other terrains are ROADMAP queue 1 item 9")
+    unported = [k for k in _UNPORTED if getattr(cfg, k)]
+    if unported:
+      raise NotImplementedError(
+          f"env options {unported} are not ported yet (ROADMAP queue 1 "
+          "item 9)")
+    self.cfg = cfg
+    self.device = resolve_device(device)
+    self.model = a1_model.build(dt=cfg.time_step_s / cfg.substeps,
+                                device=self.device)
+    self._init_pos = torch.tensor(terr.INIT_POSITION[cfg.terrain_type],
+                                  dtype=torch.float32, device=self.device)
+    if cfg.clip_num is not None:
+      clip = np.asarray(cfg.clip_num, np.float32)
+      lb, ub = P.INIT_MOTOR_ANGLES - clip, P.INIT_MOTOR_ANGLES + clip
+    else:
+      lb, ub = P.JOINT_LOWER, P.JOINT_UPPER
+    self._act_lb12 = torch.tensor(lb, dtype=torch.float32, device=self.device)
+    self._act_ub12 = torch.tensor(ub, dtype=torch.float32, device=self.device)
+    self._init_cmd = torch.tensor(P.INIT_MOTOR_ANGLES, dtype=torch.float32,
+                                  device=self.device)
+    self._template = None
+
+  @property
+  def action_low(self):
+    return self._act_lb12[: self.cfg.action_dim]
+
+  @property
+  def action_high(self):
+    return self._act_ub12[: self.cfg.action_dim]
+
+  @property
+  def obs_dim(self) -> int:
+    return self.cfg.obs_dim
+
+  # ------------------------------------------------------------------
+  def settled_template(self) -> a1.RobotState:
+    """Settle one robot to contact equilibrium on flat ground once (the
+    reference's standing reset, a1.py:232-247) with the per-env engine;
+    cached and placed by every reset."""
+    if self._template is not None:
+      return self._template
+    dyn = a1.default_dynamics(self.model)
+    h_fn, n_fn = terr.flat_height_fn()
+    cfn = contact.make_terrain_contact_fn(
+        h_fn, n_fn, friction=dyn.lateral_friction * self.cfg.fric_coeff[0])
+    model_d = a1.apply_dynamics(self.model, dyn)
+    phys = engine.zero_state(self.model).replace(
+        pos=torch.tensor([0.0, 0.0, 0.32], device=self.device),
+        joint_q=self._init_cmd.clone())
+    rs = a1.init_robot_state(phys)
+    for _ in range(self.cfg.settle_steps * self.cfg.substeps):
+      rs, _ = a1.substep(model_d, rs, self._init_cmd, dyn, cfn)
+    self._template = a1.init_robot_state(rs.phys)
+    return self._template
+
+  # ------------------------------------------------------------------
+  def draw_reset(self, n_env: int, gen: torch.Generator) -> ResetDraws:
+    cfg = self.cfg
+    terrain = terr.TERRAIN_GENERATORS[cfg.terrain_type](gen, n_env,
+                                                        self.device)
+    dyn = dynamics_rando.maybe_sample(self.model, gen, n_env,
+                                      cfg.domain_randomization,
+                                      cfg.fixed_delay_observation)
+    r = cfg.random_init_range
+    jitter = (torch.rand(n_env, 2, generator=gen, device=self.device) * 2 * r
+              - r) if r > 0 else torch.zeros(n_env, 2, device=self.device)
+    return ResetDraws(terrain, dyn, jitter, self.draw_blind_spots(n_env, gen))
+
+  def draw_blind_spots(self, n_env: int, gen: torch.Generator) -> BlindSpots:
+    n = cam.NUM_BLIND_SPOTS
+    return BlindSpots(
+        num=torch.randint(3, n, (n_env,), generator=gen, device=self.device),
+        idx=torch.randint(0, cam.IMG_SIZE, (n_env, n, 2), generator=gen,
+                          device=self.device))
+
+  def reset(self, n_env: int, gen: torch.Generator
+            ) -> Tuple[EnvState, torch.Tensor]:
+    """A batch of n_env fresh envs and their observations (E, obs_dim)."""
+    cfg = self.cfg
+    draws = self.draw_reset(n_env, gen)
+    template = self.settled_template()
+    E = n_env
+    pos_xy = self._init_pos[:2] + draws.init_jitter
+    pos = torch.cat([pos_xy, template.phys.pos[2].expand(E, 1)], dim=-1)
+    tp = template.phys
+    rep = lambda x: x.expand((E,) + x.shape).clone()
+    phys = engine.PhysState(pos=pos, quat=rep(tp.quat),
+                            joint_q=rep(tp.joint_q), ang=rep(tp.ang),
+                            lin=rep(tp.lin), joint_qd=rep(tp.joint_qd))
+    rs = a1.init_robot_state(phys)
+    cmd = rep(self._init_cmd)
+    frames = (torch.zeros(E, cfg.num_stored_frames, 64, 64,
+                          device=self.device)
+              if cfg.get_image else torch.zeros(E, 1, 1, 1,
+                                                device=self.device))
+    state = EnvState(
+        robot=rs, dyn=draws.dyn, terrain=draws.terrain,
+        task=tasks.init_task_state(pos, terr.NUM_SUBGOALS),
+        motor_hist=torch.zeros(E, 3, 12, device=self.device),
+        imu_hist=torch.zeros(E, 3, 4, device=self.device),
+        disp_hist=torch.zeros(E, 3, 3, device=self.device),
+        last_action_hist=torch.zeros(E, 3, 12, device=self.device),
+        last_action=cmd, last_base_pos=pos.clone(), frames=frames,
+        step_counter=torch.zeros(E, dtype=torch.int32, device=self.device))
+    m, imu, disp = self._sensor_readings(state)
+    state = state.replace(
+        motor_hist=m[:, None].expand(E, 3, 12).clone(),
+        imu_hist=imu[:, None].expand(E, 3, 4).clone(),
+        disp_hist=disp[:, None].expand(E, 3, 3).clone(),
+        last_action_hist=cmd[:, None].expand(E, 3, 12).clone())
+    if cfg.get_image:
+      depth = self._render(state, draws.blind)
+      state = state.replace(frames=depth[:, None].expand(
+          E, cfg.num_stored_frames, 64, 64).clone())
+    return state, self._observation(state)
+
+  # ------------------------------------------------------------------
+  def _sensor_readings(self, state: EnvState):
+    dt = self.model.dt
+    rs, dyn = state.robot, state.dyn
+    motor = a1.delayed_motor_angles(rs, dyn, dt)
+    rpy, drpy = a1.delayed_rpy_and_rate(rs, dyn, dt)
+    imu = torch.stack([rpy[:, 0], rpy[:, 1], drpy[:, 0], drpy[:, 1]], dim=-1)
+    disp = rs.phys.pos - state.last_base_pos
+    return motor, imu, disp
+
+  def _render(self, state: EnvState, blind: BlindSpots):
+    cfg = self.cfg
+    E = state.step_counter.shape[0]
+    if cfg.empty_image:
+      return torch.zeros(E, 64, 64, device=self.device)
+    rot = maths.quat_to_mat(state.robot.phys.quat)
+    depth = cam.render_depth(
+        state.robot.phys.pos, rot, state.terrain,
+        show_subgoals=cfg.subgoal_reward is not None,
+        max_boxes=terr.RENDER_BOX_CAPS.get(cfg.terrain_type,
+                                           cam.MAX_RENDER_BOXES))
+    if cfg.depth_image:
+      depth = cam.preprocess_depth(depth, blind.num, blind.idx)
+    return depth
+
+  def _image_obs(self, state: EnvState):
+    cfg = self.cfg
+    frame_idx = torch.arange(4, device=self.device) * cfg.frame_extract
+    img = state.frames[:, frame_idx].reshape(state.frames.shape[0], -1)
+    if cfg.depth_norm and cfg.depth_image:
+      img = (img - 1.25) / 0.425
+    return img
+
+  def _observation(self, state: EnvState):
+    cfg = self.cfg
+    E = state.step_counter.shape[0]
+    parts = []
+    if cfg.goal:
+      parts += [state.robot.phys.pos, state.terrain.goal_pos]
+    if not cfg.no_displacement:
+      parts.append(state.disp_hist.reshape(E, -1))
+    parts.append(state.imu_hist.reshape(E, -1))
+    if cfg.add_last_action_input:
+      parts.append(state.last_action_hist.reshape(E, -1))
+    parts.append(state.motor_hist.reshape(E, -1))
+    if cfg.get_image:
+      parts.append(self._image_obs(state))
+    return torch.cat(parts, dim=-1).float()
+
+  # ------------------------------------------------------------------
+  def _expand_action(self, action):
+    """DiagonalAction (env_builder.py:102-107) + ActionRestrain clip."""
+    if self.cfg.diagonal_act:
+      right, left = action[:, :3], action[:, 3:6]
+      action = torch.cat([right, left, left, right], dim=-1)
+    return torch.minimum(torch.maximum(action, self._act_lb12),
+                         self._act_ub12)
+
+  def _step_pre(self, state: EnvState, action):
+    act12 = self._expand_action(action)
+    state = state.replace(last_action=act12,
+                          last_base_pos=state.robot.phys.pos)
+    return state, act12
+
+  def _pruned_boxes(self, boxes, base_xy):
+    """The NEAR_BOXES boxes nearest by axis-aligned surface distance."""
+    if boxes.shape[1] <= self.NEAR_BOXES:
+      return boxes
+    dx = torch.clamp(torch.abs(base_xy[:, None, 0] - boxes[..., 0])
+                     - boxes[..., 3], min=0.0)
+    dy = torch.clamp(torch.abs(base_xy[:, None, 1] - boxes[..., 1])
+                     - boxes[..., 4], min=0.0)
+    d = dx * dx + dy * dy + torch.where(boxes[..., 7] > 0.5, 0.0, 1e9)
+    _, idx = torch.topk(-d, self.NEAR_BOXES, dim=-1)
+    return torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 8))
+
+  def step_batch(self, states: EnvState, actions, gen: torch.Generator):
+    """Step every env: action expansion, one physics-window launch over
+    all envs, sensors, task, camera.  Returns (states, obs (E, D),
+    reward (E,), done (E,) bool, info)."""
+    cfg = self.cfg
+    states, act12 = self._step_pre(states, actions)
+    pos_xy = states.robot.phys.pos[:, :2]
+    boxes = self._pruned_boxes(states.terrain.boxes, pos_xy)
+    spheres = states.terrain.obstacle_spheres
+    fric_box = states.dyn.lateral_friction
+    fric_ground = fric_box * cfg.fric_coeff[0]
+    rs, pen = physics_kernel.robot_window(
+        self.model, states.robot, act12, states.dyn, boxes, spheres,
+        fric_ground, fric_box, cfg.num_action_repeat * cfg.substeps,
+        cfg.enable_action_interpolation)
+    blind = self.draw_blind_spots(act12.shape[0], gen) if cfg.get_image \
+        else None
+    return self._step_post(states, rs, act12, pen, blind)
+
+  def _step_post(self, state: EnvState, rs, act12, pen, blind):
+    cfg = self.cfg
+    ground_pen, box_pen = pen[..., 0], pen[..., 1]
+    nonfoot_ground = torch.any((ground_pen > 0)
+                               & (self.model.cp_is_foot < 0.5), dim=-1)
+    nonfoot_contact = nonfoot_ground | torch.any(box_pen > 0, dim=-1)
+    state = state.replace(robot=rs)
+    task_state = tasks.update(state.task, rs.phys.pos)
+    m, imu, disp = self._sensor_readings(state)
+    push = lambda new, hist: torch.cat([new[:, None], hist[:, :-1]], dim=1)
+    state = state.replace(
+        task=task_state, motor_hist=push(m, state.motor_hist),
+        imu_hist=push(imu, state.imu_hist),
+        disp_hist=push(disp, state.disp_hist),
+        last_action_hist=push(act12, state.last_action_hist))
+    task_cfg = self._task_cfg()
+    is_done = tasks.done(task_cfg, task_state, rs.phys.pos, rs.phys.quat,
+                         nonfoot_contact)
+    rew, trackers = tasks.reward(
+        task_cfg, task_state, maths.wxyz_to_xyzw(rs.phys.quat),
+        rs.observed_torques, is_done, state.terrain.subgoals,
+        state.terrain.goal_pos)
+    state = state.replace(task=task_state.replace(subgoal_trackers=trackers),
+                          step_counter=state.step_counter + 1)
+    if cfg.get_image:
+      capture = (state.step_counter % cfg.get_image_interval) == 0
+      depth = self._render(state, blind)
+      frames = torch.cat([depth[:, None], state.frames[:, :-1]], dim=1)
+      state = state.replace(frames=select(capture, frames, state.frames))
+    info = {"subgoals_hit": torch.sum(1.0 - trackers, dim=-1)}
+    return state, self._observation(state), rew, is_done, info
+
+  def _task_cfg(self) -> tasks.TaskConfig:
+    cfg = self.cfg
+    return tasks.TaskConfig(
+        goal=cfg.goal, z_constrain=cfg.z_constrain,
+        other_direction_penalty=cfg.other_direction_penalty,
+        z_penalty=cfg.z_penalty, time_step_s=cfg.time_step_s,
+        num_action_repeat=cfg.num_action_repeat, height_fall_coeff=0.2,
+        alive_reward=cfg.alive_reward, fall_reward=cfg.fall_reward,
+        target_vel=cfg.target_vel, check_contact=cfg.check_contact,
+        subgoal_reward=cfg.subgoal_reward, goal_coeff=cfg.goal_coeff)

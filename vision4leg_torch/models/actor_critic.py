@@ -1,0 +1,118 @@
+"""LocoTransformer actor-critic (torch mirror of
+vision4leg_tpu.models.actor_critic.LocoTransformerActorCritic; reference
+ppo_locotransformer.py:79-101): one shared tokenizer; separate
+transformer stacks and MLP heads for policy and value; a learnable
+state-independent logstd initialized to log(0.125), clamped to [-5, 2]
+(continuous_policy.py:8-9, 239-254)."""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from vision4leg_torch.models import init as winit
+from vision4leg_torch.models.base import (LocoTransformerEncoder,
+                                          TransformerEncoderLayer)
+
+LOG_SIG_MAX = 2.0
+LOG_SIG_MIN = -5.0
+
+
+class MLPHead(nn.Module):
+  """Append-FC stack + small-uniform output layer (nets.py:16-70 tail)."""
+
+  def __init__(self, in_dim: int, hidden_shapes: Sequence[int],
+               out_dim: int):
+    super().__init__()
+    dims = [in_dim, *hidden_shapes, out_dim]
+    self.layers = nn.ModuleList(
+        nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+
+  def init_weights(self, gen):
+    for layer in self.layers[:-1]:
+      winit.fanin_uniform_(layer, gen)
+    winit.uniform_small_(self.layers[-1], gen)
+
+  def forward(self, x):
+    for layer in self.layers[:-1]:
+      x = torch.relu(layer(x))
+    return self.layers[-1](x)
+
+
+class LocoTransformerActorCritic(nn.Module):
+
+  def __init__(self, action_dim: int, state_input_shape: int,
+               visual_input_shape: Tuple[int, int, int] = (4, 64, 64),
+               encoder_hidden_shapes: Sequence[int] = (256, 256),
+               transformer_params: Sequence[tuple] = ((1, 256), (1, 256)),
+               append_hidden_shapes: Sequence[int] = (256, 256),
+               token_dim: int = 64, log_init: float = 0.125,
+               generator: torch.Generator | None = None):
+    super().__init__()
+    self.state_input_shape = state_input_shape
+    self.visual_input_shape = tuple(visual_input_shape)
+    self.encoder = LocoTransformerEncoder(
+        visual_input_shape[0], state_input_shape, encoder_hidden_shapes,
+        token_dim)
+    self.pf_layers = nn.ModuleList(
+        TransformerEncoderLayer(token_dim, nh, ff)
+        for nh, ff in transformer_params)
+    self.vf_layers = nn.ModuleList(
+        TransformerEncoderLayer(token_dim, nh, ff)
+        for nh, ff in transformer_params)
+    self.pf_mlp = MLPHead(2 * token_dim, append_hidden_shapes, action_dim)
+    self.vf_mlp = MLPHead(2 * token_dim, append_hidden_shapes, 1)
+    self.logstd = nn.Parameter(torch.full((action_dim,), math.log(log_init)))
+    if generator is not None:
+      self.init_weights(generator)
+
+  def init_weights(self, gen: torch.Generator):
+    """The reference's initializers, drawn from `gen`."""
+    self.encoder.init_weights(gen)
+    for layer in (*self.pf_layers, *self.vf_layers):
+      layer.init_weights(gen)
+    self.pf_mlp.init_weights(gen)
+    self.vf_mlp.init_weights(gen)
+
+  def _tokens(self, x):
+    state_x = x[..., : self.state_input_shape]
+    visual_x = x[..., self.state_input_shape:].reshape(
+        x.shape[:-1] + self.visual_input_shape)
+    return self.encoder(visual_x, state_x)
+
+  @staticmethod
+  def _pool(tokens):
+    """State token + mean of the depth tokens (nets.py:1014-1030)."""
+    return torch.cat([tokens[:, 0], tokens[:, 1:].mean(dim=1)], dim=-1)
+
+  def _head(self, mean):
+    logstd = torch.clamp(self.logstd, LOG_SIG_MIN, LOG_SIG_MAX)
+    return mean, torch.exp(logstd).expand_as(mean), logstd
+
+  def pi(self, x):
+    """-> (mean, std, logstd)."""
+    t = self._tokens(x)
+    for layer in self.pf_layers:
+      t = layer(t)
+    return self._head(self.pf_mlp(self._pool(t)))
+
+  def v(self, x):
+    """-> (B, 1) value."""
+    t = self._tokens(x)
+    for layer in self.vf_layers:
+      t = layer(t)
+    return self.vf_mlp(self._pool(t))
+
+  def pi_v(self, x):
+    """Tokenize once, run both stacks: ((mean, std, logstd), value)."""
+    t0 = self._tokens(x)
+    t = t0
+    for layer in self.pf_layers:
+      t = layer(t)
+    pi_out = self._head(self.pf_mlp(self._pool(t)))
+    t = t0
+    for layer in self.vf_layers:
+      t = layer(t)
+    return pi_out, self.vf_mlp(self._pool(t))

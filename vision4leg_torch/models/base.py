@@ -1,0 +1,116 @@
+"""Encoder modules (torch mirror of vision4leg_tpu.models.base; reference
+torchrl/networks/base.py).  Images arrive channel-first (B, C, 64, 64),
+the layout of the observation's raw_img tail."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from vision4leg_torch.models import init as winit
+
+
+class MLPBase(nn.Module):
+  """Linear + ReLU stack (base.py:8-44)."""
+
+  def __init__(self, in_dim: int, hidden_shapes: Sequence[int]):
+    super().__init__()
+    dims = [in_dim, *hidden_shapes]
+    self.layers = nn.ModuleList(
+        nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+    self.out_dim = dims[-1]
+
+  def init_weights(self, gen):
+    for layer in self.layers:
+      winit.fanin_uniform_(layer, gen)
+
+  def forward(self, x):
+    for layer in self.layers:
+      x = torch.relu(layer(x))
+    return x
+
+
+class NatureEncoder(nn.Module):
+  """Nature CNN (base.py:304-343): 32c8s4 - 64c4s2 - 64c3s1, ReLU.
+  (B, C, 64, 64) -> (B, 64, 4, 4)."""
+
+  def __init__(self, in_channels: int):
+    super().__init__()
+    self.convs = nn.ModuleList([nn.Conv2d(in_channels, 32, 8, 4),
+                                nn.Conv2d(32, 64, 4, 2),
+                                nn.Conv2d(64, 64, 3, 1)])
+
+  def init_weights(self, gen):
+    for conv in self.convs:
+      winit.orthogonal_(conv, gen)
+
+  def forward(self, x):
+    for conv in self.convs:
+      x = torch.relu(conv(x))
+    return x
+
+
+class LocoTransformerEncoder(nn.Module):
+  """Tokenizer (base.py:497-627) for one depth modality: a projected
+  proprio token, then the 16 spatial tokens of NatureEncoder -> 1x1 conv.
+  Output (B, 17, token_dim)."""
+
+  def __init__(self, in_channels: int, state_dim: int,
+               hidden_shapes: Sequence[int], token_dim: int = 64):
+    super().__init__()
+    if in_channels != 4:
+      raise NotImplementedError("only the 4-frame depth tokenizer is ported "
+                                "(rgb modalities: ROADMAP queue 1 item 9)")
+    self.state_mlp = MLPBase(state_dim, hidden_shapes)
+    self.state_proj = nn.Linear(self.state_mlp.out_dim, token_dim)
+    self.nature = NatureEncoder(in_channels)
+    self.token_conv = nn.Conv2d(64, token_dim, 1)
+
+  def init_weights(self, gen):
+    self.state_mlp.init_weights(gen)
+    winit.fanin_uniform_(self.state_proj, gen)
+    self.nature.init_weights(gen)
+    winit.orthogonal_(self.token_conv, gen)
+
+  def forward(self, visual_x, state_x):
+    s = torch.relu(self.state_proj(self.state_mlp(state_x)))
+    h = self.token_conv(self.nature(visual_x))          # (B, D, 4, 4)
+    v = h.flatten(2).transpose(1, 2)                     # (B, 16, D)
+    return torch.cat([s[:, None], v], dim=1)
+
+
+class TransformerEncoderLayer(nn.Module):
+  """Post-norm encoder layer, dropout 0 (torch nn.TransformerEncoderLayer
+  semantics, as the flax mirror): x = LN(x + SelfAttn(x));
+  x = LN(x + FFN(x)).  LayerNorm eps 1e-6 as flax's."""
+
+  def __init__(self, d_model: int, n_head: int, dim_feedforward: int):
+    super().__init__()
+    if d_model % n_head:
+      raise ValueError("d_model must divide by n_head")
+    self.n_head = n_head
+    self.query = nn.Linear(d_model, d_model)
+    self.key = nn.Linear(d_model, d_model)
+    self.value = nn.Linear(d_model, d_model)
+    self.out = nn.Linear(d_model, d_model)
+    self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
+    self.ff1 = nn.Linear(d_model, dim_feedforward)
+    self.ff2 = nn.Linear(dim_feedforward, d_model)
+    self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
+
+  def init_weights(self, gen):
+    for layer in (self.query, self.key, self.value, self.out, self.ff1,
+                  self.ff2):
+      winit.lecun_normal_(layer, gen)
+
+  def forward(self, x):                                   # (B, T, D)
+    B, T, D = x.shape
+    hd = D // self.n_head
+    split = lambda y: y.view(B, T, self.n_head, hd).transpose(1, 2)
+    q = split(self.query(x)) / hd ** 0.5
+    k, v = split(self.key(x)), split(self.value(x))
+    a = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+    o = self.out((a @ v).transpose(1, 2).reshape(B, T, D))
+    x = self.norm1(x + o)
+    return self.norm2(x + self.ff2(torch.relu(self.ff1(x))))
