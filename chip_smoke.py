@@ -4,19 +4,35 @@
 
 Phases, each printed with the seconds since start:
   1. card name and power limit (nvidia-smi), torch / CUDA versions;
-  2. build of the main path's CUDA kernel (physics_window) from this
-     checkout's source with nvcc, with ptxas's register and spill counts;
-  3. the kernel against its plain PyTorch version, on the card, at the
-     shapes the main path gives it (1024 envs), on rollout states and on
-     a batch standing on boxes and spheres (`contact_case`), by
+  2. build of the main path's CUDA kernels (physics_window,
+     transformer_layer) from this checkout's sources, one nvcc each, all
+     started together, with ptxas's register and spill counts;
+  3. the window kernel against its plain PyTorch version, on the card,
+     at the shapes the main path gives it (1024 envs), on rollout states
+     and on a batch standing on boxes and spheres (`contact_case`), by
      `physics_kernel.compare_with_plain`; then both timed with CUDA
      events, and the bound of `ops/window_cost.py` for the rollout data;
-  4. the main path: thin-goal LocoTransformer collection (get_env from
-     config/rl/static/locotransformer/thin-goal.json, the actor-critic at
-     the config's full width with seeded random weights, init_collector,
-     one 16-step rollout at 1024 envs), with every kernel's launch count
-     set to 0 just before the rollout and read just after;
-  5. one JSON line with every kernel's numbers, then the last line
+  4. the collection path: thin-goal LocoTransformer collection (get_env
+     from config/rl/static/locotransformer/thin-goal.json, the
+     actor-critic at the config's full width with seeded random weights,
+     init_collector, one 16-step rollout at 1024 envs, fused layer off),
+     with every kernel's launch count set to 0 just before the rollout
+     and read just after;
+  5. the transformer-layer kernel against its plain version
+     (`ops/attention.layer_math`) at B = 1024, 1000 and 8, on the
+     encoder's tokens of phase 4's observations and on random x, forward
+     and gradient (`fused_transformer_layer_ad` against autograd of the
+     plain version); kernel, plain version and torch's own
+     nn.TransformerEncoderLayer (the yardstick, never called by the port)
+     timed with CUDA events, and the bound of `attention.layer_cost`;
+  6. the training path: the port's starter pieces build a PPOAgent from
+     the same config (1024 envs, full width, fused layer on in
+     collection and update), which trains two epochs with an eval after
+     each and a checkpoint after the second, the launch counts set to 0
+     just before and read just after and held to the exact counts of the
+     path; metrics finite, parameters changed, the checkpoint restored
+     into a second agent equal to the first;
+  7. one JSON line with every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
@@ -27,9 +43,11 @@ exits non-zero before doing anything.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 T0 = time.perf_counter()
@@ -158,14 +176,280 @@ def contact_case(env, xy, cmd, dyn, n_sub):
           u(0.5, 1.25, E), u(0.5, 1.25, E), n_sub)
 
 
+def time_ms(fn, n=25, warm=3):
+  """Milliseconds per call of `fn`: CUDA events around n calls issued back
+  to back after `warm` calls, so that the host's time to issue a call
+  overlaps the card's work and a short kernel is not timed with its
+  wrapper's Python."""
+  import torch
+  for _ in range(warm):
+    fn()
+  torch.cuda.synchronize()
+  s, e = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+  s.record()
+  for _ in range(n):
+    fn()
+  e.record()
+  e.synchronize()
+  return s.elapsed_time(e) / n
+
+
+# tolerances of tests/test_pallas.py for the JAX fused layer
+LAYER_FWD_TOL = dict(atol=2e-5, rtol=1e-4)
+LAYER_GRAD_TOL = dict(atol=3e-5, rtol=1e-4)
+LAYER_BATCHES = (1024, 1000, 8)   # rollout/update minibatch, ragged, eval
+TRAIN_EPOCHS = 2
+EVAL_HORIZON = 32
+
+
+def _close(got, ref, atol, rtol):
+  """(largest |got - ref|, whether |got - ref| <= atol + rtol |ref|
+  everywhere)."""
+  import torch
+  d = (got - ref).abs()
+  return float(d.max()), bool(torch.all(d <= atol + rtol * ref.abs()))
+
+
+def phase_layer(net, obs, card):
+  """The fused-layer kernel against `layer_math` on the main path's
+  inputs; returns its numbers for the kernels line."""
+  import torch
+  from vision4leg_torch.ops import attention as att
+  dev = obs.device
+  with torch.no_grad():
+    tokens = net._tokens(obs)                        # (1024, 17, 64)
+    w0 = att.LayerWeights(*[t.detach() for t in
+                            att.weights_from_layer(net.pf_layers[0])])
+    w1 = att.LayerWeights(*[t.detach() for t in
+                            att.weights_from_layer(net.pf_layers[1])])
+    second = att.layer_math(tokens, w0)              # input of layer 2
+  gen = torch.Generator(device=dev).manual_seed(3)
+  noise = torch.randn(tokens.shape, generator=gen, device=dev)
+  cases = {"tokens->pf_layers.0": (tokens, w0),
+           "layer-1 out->pf_layers.1": (second, w1),
+           "randn->pf_layers.0": (noise, w0)}
+  max_err = 0.0
+  for name, (x_all, w) in cases.items():
+    for B in LAYER_BATCHES:
+      x = x_all[:B].contiguous()
+      with torch.no_grad():
+        got = att.fused_transformer_layer(x, w)
+        ref = att.layer_math(x, w)
+      torch.cuda.synchronize()
+      err, ok = _close(got, ref, **LAYER_FWD_TOL)
+      max_err = max(max_err, err)
+      # gradients of a weighted sum: kernel forward + recomputed backward
+      # against autograd of the plain version
+      g = torch.randn(x.shape, generator=gen, device=dev)
+      grads = []
+      for fn in (att.fused_transformer_layer_ad, att.layer_math):
+        xi = x.clone().requires_grad_(True)
+        wi = att.LayerWeights(*[t.clone().requires_grad_(True) for t in w])
+        (fn(xi, wi) * g).sum().backward()
+        grads.append([xi.grad] + [t.grad for t in wi])
+      g_err, g_ok = 0.0, True
+      for a, b in zip(*grads):
+        e, o = _close(a, b, **LAYER_GRAD_TOL)
+        g_err, g_ok = max(g_err, e), g_ok and o
+      log(f"transformer_layer vs plain [{name}, B={B}]: forward max abs "
+          f"err {err:.3e}, gradient (x and 16 weights) max abs err "
+          f"{g_err:.3e}")
+      if not (ok and g_ok):
+        raise AssertionError(f"transformer_layer disagrees with plain on "
+                             f"{name} at B={B}")
+
+  # torch's own layer (eval, no_grad: its fused native path), same weights
+  D, F = tokens.shape[-1], w0.w1.shape[1]
+  lib = torch.nn.TransformerEncoderLayer(
+      D, 1, F, dropout=0.0, layer_norm_eps=1e-6, batch_first=True).to(dev)
+  lib.eval()
+  with torch.no_grad():
+    lib.self_attn.in_proj_weight.copy_(
+        torch.cat([w0.wq.t(), w0.wk.t(), w0.wv.t()]))
+    lib.self_attn.in_proj_bias.copy_(torch.cat([w0.bq, w0.bk, w0.bv]))
+    lib.self_attn.out_proj.weight.copy_(w0.wo.t())
+    lib.self_attn.out_proj.bias.copy_(w0.bo)
+    lib.linear1.weight.copy_(w0.w1.t())
+    lib.linear1.bias.copy_(w0.b1)
+    lib.linear2.weight.copy_(w0.w2.t())
+    lib.linear2.bias.copy_(w0.b2)
+    lib.norm1.weight.copy_(w0.ln1_scale)
+    lib.norm1.bias.copy_(w0.ln1_bias)
+    lib.norm2.weight.copy_(w0.ln2_scale)
+    lib.norm2.bias.copy_(w0.ln2_bias)
+    lib_err, lib_ok = _close(lib(tokens), att.layer_math(tokens, w0),
+                             **LAYER_FWD_TOL)
+  log(f"torch.nn.TransformerEncoderLayer (yardstick) vs plain at "
+      f"B={tokens.shape[0]}: max abs err {lib_err:.3e}")
+  if not lib_ok:
+    raise AssertionError("the library layer disagrees with the plain one")
+
+  before = att.fused_transformer_layer.launches
+  with torch.no_grad():
+    k_ms = time_ms(lambda: att.fused_transformer_layer(tokens, w0))
+    p_ms = time_ms(lambda: att.layer_math(tokens, w0), n=20)
+    l_ms = time_ms(lambda: lib(tokens), n=20)
+    k_ms2 = time_ms(lambda: att.fused_transformer_layer(tokens, w0))
+  # forward + backward, as the PPO update runs it (row 2ad)
+  xi = tokens.clone().requires_grad_(True)
+  wi = att.LayerWeights(*[t.clone().requires_grad_(True) for t in w0])
+  g = torch.randn(tokens.shape, generator=gen, device=dev)
+  inputs = [xi, *wi]
+  ad_ms = time_ms(lambda: torch.autograd.grad(
+      att.fused_transformer_layer_ad(xi, wi), inputs, g), n=20)
+  plain_ad_ms = time_ms(lambda: torch.autograd.grad(
+      att.layer_math(xi, wi), inputs, g), n=20)
+  lib.train()                  # dropout 0: the same function, autograd
+  lib_ad_ms = time_ms(lambda: torch.autograd.grad(
+      lib(xi), [xi, *lib.parameters()], g), n=20)
+  att.fused_transformer_layer.launches = before
+  B, T, D = tokens.shape
+  nbytes, flops = att.layer_cost(B, T, D, F)
+  t_bytes, t_ops = nbytes / 3.35e12 * 1e3, flops / 67e12 * 1e3
+  bound_ms = max(t_bytes, t_ops)
+  log(f"transformer_layer at B={B} T={T} D={D} F={F} on {card}: kernel "
+      f"{k_ms:.4f} ms / {k_ms2:.4f} ms (25 back-to-back calls, two turns), "
+      f"plain {p_ms:.4f} ms, torch.nn.TransformerEncoderLayer {l_ms:.4f} "
+      f"ms (20 calls each); bound {bound_ms * 1e3:.3f} us ({nbytes} bytes -> "
+      f"{t_bytes * 1e3:.3f} us, {flops} f32 FLOP -> {t_ops * 1e3:.3f} us)")
+  g_bytes, g_flops = att.layer_grad_cost(B, T, D, F)
+  g_bound = max(g_bytes / 3.35e12, g_flops / 67e12) * 1e3
+  log(f"fused_transformer_layer_ad forward + backward at B={B} on {card}: "
+      f"{ad_ms:.4f} ms (kernel forward, plain recompute backward), plain "
+      f"autograd {plain_ad_ms:.4f} ms, torch.nn.TransformerEncoderLayer "
+      f"autograd {lib_ad_ms:.4f} ms (20 calls each); bound "
+      f"{g_bound * 1e3:.3f} us ({g_bytes} bytes, {g_flops} f32 FLOP)")
+  return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+              bound_ms=bound_ms,
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              library_ms=l_ms)
+
+
+def phase_training(env, meta, params, card):
+  """Two thin-goal PPO epochs through the port's starter pieces, fused
+  layer on in collection and update; returns the launch counts of the
+  run and each epoch's numbers."""
+  import csv
+
+  import torch
+  from vision4leg_torch.algo.agent import PPOAgent, _flatten
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter.ppo_locotransformer import build_module
+  from vision4leg_torch.utils.logger import Logger
+  cfg = common.ppo_config(params, num_epochs=TRAIN_EPOCHS)
+  n_eval = common.num_eval_envs(params)
+
+  def agent(seed, logger):
+    return PPOAgent(
+        env=env, ac_module=build_module(env, params), cfg=cfg,
+        num_envs=NUM_ENVS, seed=seed, logger=logger,
+        save_dir=os.path.join(logger.work_dir, "model"), eval_interval=1,
+        save_interval=TRAIN_EPOCHS, num_eval_envs=n_eval,
+        obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"],
+        reward_scale=meta["reward_scale"], fused_attention=True,
+        fused_update=True, eval_horizon=EVAL_HORIZON, device=env.device)
+
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    logger = Logger("chip_smoke", params["env_name"], 0, params, tmp)
+    t = time.perf_counter()
+    a = agent(0, logger)
+    torch.cuda.synchronize()
+    log(f"PPOAgent at {NUM_ENVS} envs (init + init_collector): "
+        f"{time.perf_counter() - t:.2f}s")
+    init = {k: v.clone() for k, v in a.module.state_dict().items()}
+    pk.robot_window.launches = 0
+    att.fused_transformer_layer.launches = 0
+    t = time.perf_counter()
+    a.train()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {"physics_window": pk.robot_window.launches,
+                "transformer_layer": att.fused_transformer_layer.launches}
+    horizon = a.horizon
+    n_mb = cfg.opt_epochs * (cfg.epoch_frames // cfg.batch_size)
+    per_epoch_layer = (4 * horizon + 2 + 4 * n_mb) + 2 * EVAL_HORIZON
+    want = {"physics_window": TRAIN_EPOCHS * (horizon + EVAL_HORIZON),
+            "transformer_layer": TRAIN_EPOCHS * per_epoch_layer}
+    log(f"trained {TRAIN_EPOCHS} epochs in {dt:.2f}s; launches {launches}, "
+        f"expected {want} (per epoch: window {horizon} + {EVAL_HORIZON} "
+        f"eval; layer 4 x {horizon} pi_v + 2 last value + 4 x {n_mb} "
+        f"update at B={NUM_ENVS}, 2 x {EVAL_HORIZON} eval at B={n_eval})")
+    if launches != want:
+      raise AssertionError(f"launch counts {launches} != {want}")
+
+    with open(logger.csv_file_path, newline="") as f:
+      rows = list(csv.DictReader(f))
+    if len(rows) != TRAIN_EPOCHS:
+      raise AssertionError(f"{len(rows)} log rows")
+    epochs = []
+    for r in rows:
+      vals = {k: float(v) for k, v in r.items() if v not in ("", None)}
+      bad = [k for k, v in vals.items() if not math.isfinite(v)]
+      if bad or vals["diagnostics/nonfinite_obs"] != 0:
+        raise AssertionError(f"non-finite metrics {bad}")
+      for k in ("Training/policy_loss", "Training/vf_loss",
+                "Eval_Rewards_Average"):
+        if k not in vals:
+          raise AssertionError(f"{k} missing from the log")
+      rate = cfg.epoch_frames / vals["Train___Time"]
+      epochs.append(dict(
+          epoch=int(vals["EPOCH"]), collect_s=vals["Explore_Time"],
+          update_s=vals["Update_Time"], eval_s=vals["Eval____Time"],
+          env_steps_per_s=rate, vf_loss=vals["Training/vf_loss"],
+          policy_loss=vals["Training/policy_loss"],
+          eval_return=vals["Eval_Rewards_Average"]))
+      log(f"epoch {epochs[-1]['epoch']} on {card}: collection "
+          f"{vals['Explore_Time']:.3f}s, update ({n_mb} minibatches) "
+          f"{vals['Update_Time']:.3f}s, eval ({EVAL_HORIZON} steps x "
+          f"{n_eval} envs) {vals['Eval____Time']:.3f}s; "
+          f"{cfg.epoch_frames} env-steps / {vals['Train___Time']:.3f}s "
+          f"(collection + update) = {rate:.1f} env-steps/s; vf_loss "
+          f"{vals['Training/vf_loss']:.4f}, policy_loss "
+          f"{vals['Training/policy_loss']:.5f}, eval return "
+          f"{vals['Eval_Rewards_Average']:.3f}")
+    changed = sum(not torch.equal(v, init[k])
+                  for k, v in a.module.state_dict().items())
+    if changed != len(init):
+      raise AssertionError(f"only {changed} of {len(init)} parameter "
+                           "tensors changed")
+
+    # the checkpoint after the last epoch, restored into a second agent
+    b = agent(1, logger)
+    if b.restore_checkpoint() != TRAIN_EPOCHS:
+      raise AssertionError("restore_checkpoint returned another epoch")
+
+    def state(x):
+      ts = x.train_state
+      out = {f"module.{k}": v for k, v in x.module.state_dict().items()}
+      for side in ("pf_opt", "vf_opt"):
+        st = getattr(ts, side)
+        out.update({f"{side}.mu.{i}": m for i, m in enumerate(st.mu)})
+        out.update({f"{side}.nu.{i}": n for i, n in enumerate(st.nu)})
+      out.update(_flatten(x.collector_state, "cs", {}))
+      return out, (ts.pf_opt.count, ts.vf_opt.count, ts.epoch)
+
+    (sa, ca), (sb, cb) = state(a), state(b)
+    diff = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    if diff or ca != cb or set(sa) != set(sb):
+      raise AssertionError(f"restored state differs: {diff[:5]} {ca} {cb}")
+    log(f"checkpoint restored into a second agent: {len(sa)} tensors "
+        f"(params, both Adam states, collector) equal; counts {cb}")
+  launches["epochs"] = epochs
+  return launches
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
     return 2
-  import numpy as np
 
   from vision4leg_torch.collector import rollout as rollout_lib
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import nvcc
   from vision4leg_torch.ops import physics_kernel as pk
   from vision4leg_torch.ops import window_cost
 
@@ -184,11 +468,15 @@ def main() -> int:
       f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
   log("TF32 off for matmul and cuDNN (outputs are compared)")
 
-  # --- 2. build the kernel ------------------------------------------------
+  # --- 2. build the kernels, one nvcc each, started together -------------
+  t = time.perf_counter()
+  for name, info in nvcc.build(["physics_window",
+                                "transformer_layer"]).items():
+    log(f"built {name} in {info['seconds']:.2f}s (cached={info['cached']}): "
+        f"ptxas {json.dumps(nvcc.ptxas_counts(info['log']))}")
+  log(f"both kernels built in {time.perf_counter() - t:.2f}s")
   pk.build_library()
-  info = pk.BUILD_INFO
-  log(f"built physics_window in {info['seconds']:.2f}s "
-      f"(cached={info['cached']}): ptxas {json.dumps(info['ptxas'])}")
+  att.build_library()
 
   # --- env and policy of the main path ------------------------------------
   env, meta, net, params = build_main_path(dev)
@@ -262,21 +550,6 @@ def main() -> int:
       raise AssertionError(f"physics_window disagrees with plain on {name}")
     max_err = max(max_err, rep["max_abs_err"])
 
-  def time_ms(fn, n=25, warm=3):
-    for _ in range(warm):
-      fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-      s, e = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-      s.record()
-      fn()
-      e.record()
-      e.synchronize()
-      times.append(s.elapsed_time(e))
-    return float(np.median(times))
-
   args = cases["rollout"]
   launches_before = pk.robot_window.launches
   k_ms = time_ms(lambda: pk.robot_window(*args))
@@ -291,17 +564,18 @@ def main() -> int:
   t_ops = ops / 67e12 * 1e3
   bound_ms = max(t_bytes, t_ops)
   log(f"physics_window at 1024 envs on {card}: kernel {k_ms:.4f} ms / "
-      f"{k_ms2:.4f} ms (median of 25, two turns), plain {p_ms:.3f} ms "
-      f"(median of 20); bound {bound_ms * 1e3:.3f} us ({nbytes} bytes -> "
+      f"{k_ms2:.4f} ms (25 back-to-back calls, two turns), plain "
+      f"{p_ms:.3f} ms (20 calls); bound {bound_ms * 1e3:.3f} us ({nbytes} bytes -> "
       f"{t_bytes * 1e3:.3f} us, {ops} f32 ops -> {t_ops * 1e3:.3f} us)")
 
-  # --- 4. the main path ----------------------------------------------------
+  # --- 4. the collection path --------------------------------------------
   rollout = make_rollout(env, meta, net, params)
   t = time.perf_counter()
   cs = rollout_lib.init_collector(env, num_envs, gen)
   torch.cuda.synchronize()
   log(f"init_collector at {num_envs} envs: {time.perf_counter() - t:.2f}s")
   pk.robot_window.launches = 0
+  att.fused_transformer_layer.launches = 0
   t = time.perf_counter()
   cs, traj, last_v = rollout(cs)
   torch.cuda.synchronize()
@@ -310,10 +584,13 @@ def main() -> int:
   log(f"rollout: {horizon} steps x {num_envs} envs in {dt:.3f}s = "
       f"{horizon * num_envs / dt:.1f} env-steps/s on {card} "
       f"(first rollout of the process); physics_window launches "
-      f"{launches}")
-  if launches != horizon:
-    raise AssertionError(f"physics_window launched {launches} times in a "
-                         f"{horizon}-step rollout")
+      f"{launches}, transformer_layer launches "
+      f"{att.fused_transformer_layer.launches} (fused layer off)")
+  if launches != horizon or att.fused_transformer_layer.launches != 0:
+    raise AssertionError(
+        f"a {horizon}-step rollout launched physics_window {launches} "
+        f"times and transformer_layer "
+        f"{att.fused_transformer_layer.launches} times")
   for name in ("obs", "acts", "log_probs", "values", "rewards"):
     x = getattr(traj, name)
     if not torch.isfinite(x).all():
@@ -332,15 +609,30 @@ def main() -> int:
       f"terminals {int(traj.terminals.sum())}; mean reward "
       f"{float(traj.rewards.mean()):.4f}")
 
+  # --- 5. the transformer-layer kernel against its plain version --------
+  layer = phase_layer(net, traj.obs[0], card)
+  del cs, traj, last_v
+  torch.cuda.empty_cache()
+
+  # --- 6. the training path ------------------------------------------------
+  launches = phase_training(env, meta, params, card)
+
+  # --- 7. results -----------------------------------------------------------
   kernels = [dict(
       name="physics_window", route="cuda",
       source="vision4leg_torch/ops/csrc/physics_window.cu",
       replaces="vision4leg_tpu/ops/physics_kernel.py:113",
-      launches=launches, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
-      bound_ms=bound_ms, bound_by="operations" if t_ops >= t_bytes
-      else "bytes", library_ms=None)]
+      launches=launches["physics_window"], max_abs_err=max_err, ms=k_ms,
+      plain_ms=p_ms, bound_ms=bound_ms,
+      bound_by="operations" if t_ops >= t_bytes else "bytes",
+      library_ms=None), dict(
+      name="transformer_layer", route="cuda",
+      source="vision4leg_torch/ops/csrc/transformer_layer.cu",
+      replaces="vision4leg_tpu/ops/attention.py:116",
+      launches=launches["transformer_layer"], **layer)]
   print(json.dumps({"kernels": kernels, "card": card,
-                    "env_steps_per_s": horizon * num_envs / dt}), flush=True)
+                    "collection_env_steps_per_s": horizon * num_envs / dt,
+                    "training": launches["epochs"]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

@@ -25,6 +25,10 @@ names = [m.name for m in pkgutil.walk_packages(vision4leg_torch.__path__,
                                                "vision4leg_torch.")]
 for n in names:
   importlib.import_module(n)
+for n in ("vision4leg_torch.algo.agent",
+          "vision4leg_torch.starter.ppo_locotransformer",
+          "vision4leg_torch.ops.attention"):
+  assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
@@ -52,6 +56,12 @@ def test_default_device_entry_points_raise_without_a_card():
   with pytest.raises(RuntimeError, match="no CUDA device"):
     get_env("A1MoveGround", {"env_build": {}})
   assert resolve_device("cpu").type == "cpu"
+  from vision4leg_torch.algo.agent import PPOAgent
+  from vision4leg_torch.algo.ppo import PPOConfig
+  env, _ = get_env("A1MoveGround", {"env_build": {}}, device="cpu")
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    PPOAgent(env=env, ac_module=None, cfg=PPOConfig(), num_envs=4, seed=0,
+             logger=None, save_dir="unused")
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,6 +1,7 @@
 """Where the time of one thin-goal rollout of the torch port goes, on the card.
 
-    python3 tools/profile_torch_rollout.py
+    python3 tools/profile_torch_rollout.py            # a rollout
+    python3 tools/profile_torch_rollout.py --train    # a PPO update epoch
 
 Builds the main path as chip_smoke.py does (thin-goal JSON, 1024 envs,
 LocoTransformer at full width, random weights from a seed), runs one
@@ -12,6 +13,14 @@ steady-state env-steps/s, the share of the profiled rollout's wall time
 that kernels ran on the card, each span's host milliseconds and its range
 on the device timeline, and the top CUDA kernels, then one JSON line with
 the same numbers.
+
+With --train it profiles the PPO update of one training epoch instead:
+a PPOAgent built as chip_smoke.py's training phase builds it (1024 envs,
+full width, fused layer on in collection and update, torch's default
+TF32 settings: matmul off, cuDNN convolutions on) trains one epoch to
+warm up, then one more with the update under the profiler, with spans
+on the value and policy forwards, the fused layer's launch and its
+recomputed backward, and the two Adam steps.
 """
 from __future__ import annotations
 
@@ -45,6 +54,112 @@ def _device_total_us(evt) -> float:
   return 0.0
 
 
+def _report(prof, wall, spans, card, extra):
+  """Print span and kernel times of a profiled region and one JSON line."""
+  avgs = prof.key_averages()
+  # each span appears twice: its host range and its range on the device
+  # timeline (first to last kernel inside it, gaps included)
+  span_ms = {name: dict(calls=0, host_ms=0.0, device_range_ms=0.0)
+             for name in spans}
+  for e in avgs:
+    if e.key in span_ms:
+      d = span_ms[e.key]
+      if _is_kernel(e):
+        d["device_range_ms"] = _device_us(e) / 1e3
+      else:
+        d["calls"] = e.count
+        d["host_ms"] = e.cpu_time_total / 1e3
+  kernels = [e for e in avgs if _is_kernel(e) and e.key not in span_ms]
+  device_us = sum(_device_us(e) for e in kernels)
+  busy = device_us / (wall * 1e6)
+  print(f"profiled region: wall {wall * 1e3:.2f} ms, device kernels "
+        f"{device_us / 1e3:.2f} ms = {busy:.4f} of wall (profiler on)",
+        flush=True)
+  for name, d in span_ms.items():
+    print(f"  span {name:20s} calls {d['calls']:4d} host "
+          f"{d['host_ms']:9.2f} ms, on the device timeline "
+          f"{d['device_range_ms']:9.2f} ms", flush=True)
+  kernels = sorted(kernels, key=_device_us, reverse=True)[:15]
+  for e in kernels:
+    print(f"  kernel {_device_us(e) / 1e3:9.3f} ms x{e.count:5d} "
+          f"{e.key[:90]}", flush=True)
+  print(json.dumps(dict(
+      card=card, **extra, profiled_wall_ms=wall * 1e3,
+      device_kernel_ms=device_us / 1e3, device_busy_share=busy,
+      spans=span_ms,
+      top_kernels=[dict(name=e.key, device_ms=_device_us(e) / 1e3,
+                        calls=e.count) for e in kernels])), flush=True)
+
+
+def train(card) -> int:
+  """Profile the PPO update of one thin-goal training epoch."""
+  import tempfile
+
+  import torch
+  from torch.profiler import ProfilerActivity, profile, record_function
+
+  import chip_smoke
+  from vision4leg_torch.algo.agent import PPOAgent
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter.ppo_locotransformer import build_module
+  from vision4leg_torch.utils.logger import Logger
+
+  dev = torch.device("cuda")
+  env, meta, _, params = chip_smoke.build_main_path(dev)
+  cfg = common.ppo_config(params)
+
+  def span(name, fn):
+    def wrapped(*args, **kwargs):
+      with record_function(name):
+        return fn(*args, **kwargs)
+    return wrapped
+
+  with tempfile.TemporaryDirectory(prefix="profile_train_") as tmp:
+    logger = Logger("profile", params["env_name"], 0, params, tmp)
+    agent = PPOAgent(
+        env=env, ac_module=build_module(env, params), cfg=cfg,
+        num_envs=chip_smoke.NUM_ENVS, seed=0, logger=logger,
+        save_dir=os.path.join(tmp, "model"), obs_norm=meta["obs_norm"],
+        env_time_limit=meta["horizon"], reward_scale=meta["reward_scale"],
+        fused_attention=True, fused_update=True, device=dev)
+    walls = []
+    for _ in range(2):
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      agent.train_epoch()
+      torch.cuda.synchronize()
+      walls.append(dict(wall_s=time.perf_counter() - t,
+                        **agent.phase_seconds))
+    print(f"epochs on {card} (TF32: matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}): {walls}", flush=True)
+
+    learner = agent.learner
+    spans = ("value forward", "policy forward", "layer kernel",
+             "layer backward", "vf adam", "pf adam")
+    learner.apply_v = span("value forward", learner.apply_v)
+    learner.apply_pi = span("policy forward", learner.apply_pi)
+    att._launch = span("layer kernel", att._launch)
+    att._FusedLayerAD.backward = staticmethod(
+        span("layer backward", att._FusedLayerAD.backward))
+    learner.vf_tx.update = span("vf adam", learner.vf_tx.update)
+    learner.pf_tx.update = span("pf adam", learner.pf_tx.update)
+    cs, traj, last_value = agent.rollout(agent.collector_state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      t = time.perf_counter()
+      learner.update_per_epoch(agent.train_state, traj, last_value,
+                               gen=agent.update_gen)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t
+  _report(prof, wall, spans, card, dict(
+      envs=chip_smoke.NUM_ENVS, minibatches=cfg.opt_epochs * (
+          cfg.epoch_frames // cfg.batch_size), epochs=walls))
+  return 0
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -61,6 +176,8 @@ def main() -> int:
        "--format=csv,noheader"], capture_output=True, text=True,
       check=True).stdout.strip().splitlines()[0]
   print(card, flush=True)
+  if "--train" in sys.argv[1:]:
+    return train(card)
   dev = torch.device("cuda")
   env, meta, net, params = chip_smoke.build_main_path(dev)
 
@@ -105,40 +222,9 @@ def main() -> int:
     cs, _, _ = rollout(cs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-  avgs = prof.key_averages()
-  # each span appears twice: its host range and its range on the device
-  # timeline (first to last kernel inside it, gaps included)
-  span_ms = {name: dict(calls=0, host_ms=0.0, device_range_ms=0.0)
-             for name in spans}
-  for e in avgs:
-    if e.key in span_ms:
-      d = span_ms[e.key]
-      if _is_kernel(e):
-        d["device_range_ms"] = _device_us(e) / 1e3
-      else:
-        d["calls"] = e.count
-        d["host_ms"] = e.cpu_time_total / 1e3
-  kernels = [e for e in avgs if _is_kernel(e) and e.key not in span_ms]
-  device_us = sum(_device_us(e) for e in kernels)
-  busy = device_us / (wall * 1e6)
-  print(f"profiled rollout: wall {wall * 1e3:.2f} ms, device kernels "
-        f"{device_us / 1e3:.2f} ms = {busy:.4f} of wall (profiler on)",
-        flush=True)
-  for name, d in span_ms.items():
-    print(f"  span {name:16s} calls {d['calls']:3d} host "
-          f"{d['host_ms']:9.2f} ms, on the device timeline "
-          f"{d['device_range_ms']:9.2f} ms", flush=True)
-  kernels = sorted(kernels, key=_device_us, reverse=True)[:15]
-  for e in kernels:
-    print(f"  kernel {_device_us(e) / 1e3:9.3f} ms x{e.count:5d} "
-          f"{e.key[:90]}", flush=True)
-  print(json.dumps(dict(
-      card=card, envs=n, steps=horizon, steady_wall_s=walls,
-      steady_env_steps_per_s=rate, profiled_wall_ms=wall * 1e3,
-      device_kernel_ms=device_us / 1e3, device_busy_share=busy,
-      spans=span_ms,
-      top_kernels=[dict(name=e.key, device_ms=_device_us(e) / 1e3,
-                        calls=e.count) for e in kernels])), flush=True)
+  _report(prof, wall, spans, card, dict(
+      envs=n, steps=horizon, steady_wall_s=walls,
+      steady_env_steps_per_s=rate))
   return 0
 
 

@@ -48,10 +48,12 @@ class LocoTransformerActorCritic(nn.Module):
                encoder_hidden_shapes: Sequence[int] = (256, 256),
                transformer_params: Sequence[tuple] = ((1, 256), (1, 256)),
                append_hidden_shapes: Sequence[int] = (256, 256),
-               token_dim: int = 64, log_init: float = 0.125,
+               token_dim: int = 64, max_pool: bool = False,
+               log_init: float = 0.125,
                generator: torch.Generator | None = None):
     super().__init__()
     self.state_input_shape = state_input_shape
+    self.max_pool = max_pool
     self.visual_input_shape = tuple(visual_input_shape)
     self.encoder = LocoTransformerEncoder(
         visual_input_shape[0], state_input_shape, encoder_hidden_shapes,
@@ -82,37 +84,40 @@ class LocoTransformerActorCritic(nn.Module):
         x.shape[:-1] + self.visual_input_shape)
     return self.encoder(visual_x, state_x)
 
-  @staticmethod
-  def _pool(tokens):
-    """State token + mean of the depth tokens (nets.py:1014-1030)."""
-    return torch.cat([tokens[:, 0], tokens[:, 1:].mean(dim=1)], dim=-1)
+  def _pool(self, tokens):
+    """State token + mean (or, with max_pool, max) of the depth tokens
+    (nets.py:1014-1030)."""
+    depth = tokens[:, 1:]
+    pooled = depth.amax(dim=1) if self.max_pool else depth.mean(dim=1)
+    return torch.cat([tokens[:, 0], pooled], dim=-1)
 
   def _head(self, mean):
     logstd = torch.clamp(self.logstd, LOG_SIG_MIN, LOG_SIG_MAX)
     return mean, torch.exp(logstd).expand_as(mean), logstd
 
-  def pi(self, x):
-    """-> (mean, std, logstd)."""
+  def pi(self, x, fused: bool = False):
+    """-> (mean, std, logstd).  `fused` runs each transformer layer through
+    the fused kernel (models.base.TransformerEncoderLayer)."""
     t = self._tokens(x)
     for layer in self.pf_layers:
-      t = layer(t)
+      t = layer(t, fused=fused)
     return self._head(self.pf_mlp(self._pool(t)))
 
-  def v(self, x):
+  def v(self, x, fused: bool = False):
     """-> (B, 1) value."""
     t = self._tokens(x)
     for layer in self.vf_layers:
-      t = layer(t)
+      t = layer(t, fused=fused)
     return self.vf_mlp(self._pool(t))
 
-  def pi_v(self, x):
+  def pi_v(self, x, fused: bool = False):
     """Tokenize once, run both stacks: ((mean, std, logstd), value)."""
     t0 = self._tokens(x)
     t = t0
     for layer in self.pf_layers:
-      t = layer(t)
+      t = layer(t, fused=fused)
     pi_out = self._head(self.pf_mlp(self._pool(t)))
     t = t0
     for layer in self.vf_layers:
-      t = layer(t)
+      t = layer(t, fused=fused)
     return pi_out, self.vf_mlp(self._pool(t))

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from vision4leg_torch.models import init as winit
+from vision4leg_torch.ops import attention
 
 
 class MLPBase(nn.Module):
@@ -83,7 +84,13 @@ class LocoTransformerEncoder(nn.Module):
 class TransformerEncoderLayer(nn.Module):
   """Post-norm encoder layer, dropout 0 (torch nn.TransformerEncoderLayer
   semantics, as the flax mirror): x = LN(x + SelfAttn(x));
-  x = LN(x + FFN(x)).  LayerNorm eps 1e-6 as flax's."""
+  x = LN(x + FFN(x)).  LayerNorm eps 1e-6 as flax's.
+
+  `fused=True` runs the layer through the fused kernel with this layer's
+  own parameters (`ops.attention.fused_transformer_layer_ad`: the CUDA
+  kernel forward on the card, plain math on the CPU; differentiable).  It
+  takes a single head and float32 only, and raises otherwise, where the
+  JAX package quietly takes the unfused path."""
 
   def __init__(self, d_model: int, n_head: int, dim_feedforward: int):
     super().__init__()
@@ -104,7 +111,15 @@ class TransformerEncoderLayer(nn.Module):
                   self.ff2):
       winit.lecun_normal_(layer, gen)
 
-  def forward(self, x):                                   # (B, T, D)
+  def forward(self, x, fused: bool = False):              # (B, T, D)
+    if fused:
+      if self.n_head != 1 or x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"fused transformer layer: one head and float32 only, got "
+            f"{self.n_head} heads and {x.dtype} (bf16 collection: ROADMAP "
+            "queue 1 item 7)")
+      return attention.fused_transformer_layer_ad(
+          x, attention.weights_from_layer(self))
     B, T, D = x.shape
     hd = D // self.n_head
     split = lambda y: y.view(B, T, self.n_head, hd).transpose(1, 2)

@@ -6,33 +6,24 @@ On CUDA tensors `robot_window` launches the hand-written kernel or
 raises; on CPU tensors it runs the plain PyTorch version
 (`ops/physics_envlast.window`, same math, env-last).  The kernel is built
 with nvcc at first use into `vision4leg_torch/_build/` (a shared library
-with a plain C interface, loaded with ctypes) and cached there by a hash
-of its source and flags.
+with a plain C interface, loaded with ctypes; `ops/nvcc.py`) and cached
+there by a hash of its source and flags.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import re
-import shutil
-import subprocess
-import time
 from typing import Dict, Tuple
 
 import torch
 
+from vision4leg_torch.ops import nvcc
 from vision4leg_torch.ops import physics_envlast as pe
 from vision4leg_torch.physics import engine
 from vision4leg_torch.physics.model import Model
 from vision4leg_torch.robots import a1
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "physics_window.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = nvcc.SOURCES["physics_window"]
 
 # tree topology the kernel is compiled for (the A1: trunk + 4 legs x 3)
 KERNEL_PARENT = (-1, 0, 1, 2, 0, 4, 5, 0, 7, 8, 0, 10, 11)
@@ -54,65 +45,23 @@ _LIB = {}
 BUILD_INFO: Dict[str, object] = {}
 
 
-def _nvcc() -> str:
-  cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-  path = os.path.join(cuda_home, "bin", "nvcc")
-  found = path if os.path.exists(path) else shutil.which("nvcc")
-  if found is None:
-    raise RuntimeError("physics_window: nvcc not found (set CUDA_HOME)")
-  return found
-
-
 def build_library() -> ctypes.CDLL:
-  """Compile the kernel (once per source+flags hash) and load it."""
+  """Compile the kernel (once per source+flags hash, `ops/nvcc.py`) and
+  load it; BUILD_INFO holds the build's seconds and ptxas counts."""
   if "lib" in _LIB:
     return _LIB["lib"]
-  with open(SOURCE, "rb") as f:
-    src = f.read()
-  digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-  so_path = os.path.join(BUILD_DIR, f"physics_window_{digest[:16]}.so")
-  log_path = so_path + ".log"
-  t0 = time.perf_counter()
-  if not os.path.exists(so_path):
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-      raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    with open(log_path, "w") as f:
-      f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, so_path)
-    BUILD_INFO["cached"] = False
-  else:
-    BUILD_INFO["cached"] = True
-  BUILD_INFO["seconds"] = time.perf_counter() - t0
-  BUILD_INFO["path"] = so_path
-  with open(log_path) as f:
-    log = f.read()
-  BUILD_INFO["ptxas"] = _ptxas_counts(log)
-  lib = ctypes.CDLL(so_path)
+  lib = nvcc.load("physics_window")
+  info = nvcc.INFO["physics_window"]
+  BUILD_INFO.update(seconds=info["seconds"], cached=info["cached"],
+                    path=info["path"], ptxas={
+                        "f64" if "IdE" in k else "f32": v for k, v in
+                        nvcc.ptxas_counts(info["log"]).items()})
   fn = lib.physics_window_launch
   fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
       ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
   fn.restype = ctypes.c_int
   _LIB["lib"] = lib
   return lib
-
-
-def _ptxas_counts(log: str) -> Dict[str, dict]:
-  """Registers, stack frame and spills of each instantiation (f32, f64)
-  from `ptxas -v`'s log."""
-  out = {}
-  for chunk in log.split("Compiling entry function")[1:]:
-    num = lambda pat: int(m.group(1)) if (m := re.search(pat, chunk)) \
-        else None
-    out["f64" if "IdE" in chunk.split("'")[1] else "f32"] = dict(
-        registers=num(r"Used (\d+) registers"),
-        stack_frame_bytes=num(r"(\d+) bytes stack frame"),
-        spill_store_bytes=num(r"(\d+) bytes spill stores"),
-        spill_load_bytes=num(r"(\d+) bytes spill loads"))
-  return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,94 @@
+"""Shared experiment wiring for the port's starter scripts (torch mirror of
+starter/common.py): parse args + JSON config, build env / network /
+collector / PPO, call train().  Runs on the card."""
+from __future__ import annotations
+
+import os
+import os.path as osp
+import random
+
+import numpy as np
+import torch
+
+from vision4leg_torch.algo.agent import PPOAgent
+from vision4leg_torch.algo.ppo import PPOConfig
+from vision4leg_torch.envs.get_env import get_env
+from vision4leg_torch.utils.args import get_args, get_params
+from vision4leg_torch.utils.logger import Logger
+
+
+def _flag(name: str) -> bool:
+  return os.environ.get(name, "") not in ("", "0")
+
+
+def ppo_config(params: dict, num_epochs=None) -> PPOConfig:
+  """The PPOConfig of a reference JSON config (starter/common.py:78-93)."""
+  gs = params["general_setting"]
+  ppo = params["ppo"]
+  return PPOConfig(
+      plr=ppo["plr"], vlr=ppo["vlr"], clip_para=ppo.get("clip_para", 0.2),
+      opt_epochs=ppo.get("opt_epochs", 10),
+      clipped_value_loss=ppo.get("clipped_value_loss", False),
+      entropy_coeff=ppo.get("entropy_coeff", 0.001),
+      discount=gs.get("discount", 0.99),
+      tau=ppo.get("tau", 0.95),
+      gae=gs.get("gae", True),
+      shuffle=ppo.get("shuffle", True),
+      batch_size=gs.get("batch_size", 1024),
+      num_epochs=num_epochs or gs.get("num_epochs", 1500),
+      epoch_frames=params["collector"].get("epoch_frames", 16384),
+      max_episode_frames=params["collector"].get("max_episode_frames", 999),
+      time_limit_filter=params["replay_buffer"].get("time_limit_filter",
+                                                    True),
+  )
+
+
+def num_eval_envs(params: dict) -> int:
+  """The reference evaluates eval_episodes (=2) episodes per eval pass; the
+  JAX package runs max(8, eval_episodes) envs for a less noisy best-model
+  choice, and V4L_STRICT_EVAL=1 restores the reference's count."""
+  episodes = params["collector"].get("eval_episodes", 2)
+  return episodes if _flag("V4L_STRICT_EVAL") else max(8, episodes)
+
+
+def run_experiment(build_module):
+  """build_module(env, params) -> uninitialized torch actor-critic."""
+  args = get_args()
+  params = get_params(args.config)
+  if _flag("V4L_BF16_COLLECT"):
+    raise NotImplementedError("V4L_BF16_COLLECT: bf16 collection is not "
+                              "ported (ROADMAP queue 1 item 7, left out)")
+  if torch.cuda.device_count() > 1 and os.environ.get("V4L_MESH",
+                                                      "1") != "0":
+    raise NotImplementedError(
+        "more than one card: multi-device data parallelism is ROADMAP "
+        "queue 1 item 12; set V4L_MESH=0 (or CUDA_VISIBLE_DEVICES) to "
+        "train on one card")
+
+  env, meta = get_env(params["env_name"], params["env"])
+  num_envs = args.num_envs or max(args.vec_env_nums, 1)
+
+  random.seed(args.seed)
+  np.random.seed(args.seed)
+
+  experiment_name = (osp.split(osp.splitext(args.config)[0])[-1]
+                     if args.id is None else args.id)
+  # --resume wins over --overwrite: never delete the checkpoint to resume
+  logger = Logger(experiment_name, params["env_name"], args.seed, params,
+                  args.log_dir, args.overwrite and not args.resume)
+
+  gs = params["general_setting"]
+  agent = PPOAgent(
+      env=env, ac_module=build_module(env, params),
+      cfg=ppo_config(params, args.num_epochs), num_envs=num_envs,
+      seed=args.seed, logger=logger,
+      save_dir=osp.join(logger.work_dir, "model"),
+      eval_interval=gs.get("eval_interval", 10),
+      save_interval=gs.get("save_interval", 100),
+      num_eval_envs=num_eval_envs(params),
+      obs_norm=meta["obs_norm"],
+      env_time_limit=meta["horizon"],
+      reward_scale=meta["reward_scale"],
+  )
+  agent.train(resume=args.resume)
+  return agent
