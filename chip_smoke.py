@@ -32,13 +32,33 @@ Phases, each printed with the seconds since start:
      just before and read just after and held to the exact counts of the
      path; metrics finite, parameters changed, the checkpoint restored
      into a second agent equal to the first;
-  7. one JSON line with every kernel's numbers, then the last line
+  7. the starter's TF32 setting: `pi_v` on phase 4's observations under
+     torch's defaults (cuDNN convolutions in TF32, as the starter runs)
+     held against `pi_v` with TF32 off, at TF32_TOL;
+  8. the window kernel's hybrid mode (the MPC env's window, 5 substeps:
+     torque = (1-mask) PD + mask tau_ff) against its plain version at
+     1024 envs by `compare_with_plain`, on the MPC env's own states after
+     two steps with the tau_ff/mask of their next controller tick, and on
+     a `contact_case` batch with random masks that mix stance and swing
+     legs per env; both timed, and the bound of `ops/window_cost.py`;
+  9. MPC collection: get_env from config/mpc/locotransformer/
+     thin-goal.json, the LocoTransformer actor-critic at full width
+     (action_dim 2, proprio 6), init_collector and one 8-step rollout at
+     1024 envs (fused layer off); the window's launches set to 0 just
+     before and held to 8 x policy_freq hybrid launches plus one per
+     partial reset's settle, counted apart;
+ 10. the MPC controller's behaviour on the card (the criterion of
+     tests/test_mpc.py::test_mpc_env_walks_forward): plane, 64 envs,
+     action (0.3, 0) for 20 steps; no env done, base z > 0.15 m
+     throughout, forward progress > 0.15 m on every env;
+ 11. one JSON line with every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
-below), since outputs are compared.  Any failed phase raises: the script
-then exits non-zero and prints no result line.  Without a CUDA card it
-exits non-zero before doing anything.
+below), since outputs are compared; phase 7 turns cuDNN's TF32 on for
+one call.  Any failed phase raises: the script then exits non-zero and
+prints no result line.  Without a CUDA card it exits non-zero before
+doing anything.
 """
 from __future__ import annotations
 
@@ -59,6 +79,14 @@ def log(msg: str):
 
 NUM_ENVS = 1024   # bench.py:167
 CONFIG = "config/rl/static/locotransformer/thin-goal.json"
+MPC_CONFIG = "config/mpc/locotransformer/thin-goal.json"
+# pi_v with cuDNN's TF32 convolutions against pi_v in full float32: TF32
+# keeps 10 mantissa bits (relative rounding 2**-11 = 4.9e-4 per product);
+# over the encoder's three convolutions and the MLP/transformer that
+# follows, 1e-2 absolute plus 1e-2 relative bounds what that rounding can
+# move a policy mean or a value of O(0.1-1) without a fault
+TF32_TOL = dict(atol=1e-2, rtol=1e-2)
+WALK_ENVS, WALK_STEPS = 64, 20
 
 
 def actor_critic(env, params, generator=None):
@@ -87,6 +115,33 @@ def build_main_path(dev):
   return env, meta, net.to(dev).eval(), params
 
 
+def build_mpc_path(dev):
+  """(env, meta, policy, params) of thin-goal MPC collection on `dev`,
+  read from the unchanged JSON config; policy weights random from seed
+  0."""
+  import torch
+  from vision4leg_torch.envs.get_env import get_env
+  root = os.path.dirname(os.path.abspath(__file__))
+  with open(os.path.join(root, MPC_CONFIG)) as f:
+    params = json.load(f)
+  env, meta = get_env(params["env_name"], params["env"], device=dev)
+  net = actor_critic(env, params, torch.Generator().manual_seed(0))
+  return env, meta, net.to(dev).eval(), params
+
+
+def mpc_window_inputs(env, states, actions):
+  """The hybrid window's inputs of the first controller tick of an MPC env
+  step from `states` under `actions`: the swing targets as the command,
+  the stance torques as tau_ff, the stance legs as the mask."""
+  _, lin, ang, boxes, spheres, fg, fb = env.step_inputs(states, actions)
+  rs = states.robot
+  pen = env._contact_pen(rs, boxes, spheres, fg, fb)
+  _, swing_q, tau_ff, mask = env.controller_tick(
+      states.controller, rs, pen, states.current_time, lin, ang)
+  return (env.model, rs, swing_q, states.dyn, boxes, spheres, fg, fb,
+          env.cfg.num_action_repeat * env.cfg.substeps, False, tau_ff, mask)
+
+
 def make_rollout(env, meta, net, params):
   """The collector's 16-step rollout (epoch_frames / NUM_ENVS steps)."""
   from vision4leg_torch.collector import rollout as rollout_lib
@@ -101,9 +156,9 @@ def make_rollout(env, meta, net, params):
       reward_scale=meta["reward_scale"])
 
 
-def contact_case(env, xy, cmd, dyn, n_sub):
-  """Window inputs in which every env stands on obstacles of its own: the
-  standing template's pose varied per env (joint angles, height, tilt,
+def contact_case(model, tmpl, xy, cmd, dyn, n_sub):
+  """Window inputs for `model` in which every env stands on obstacles of
+  its own: the standing template `tmpl`'s pose varied per env (joint angles, height, tilt,
   velocities; in every eighth env one joint past its limit), one box
   under a random toe, offset and turned so that toes land on its faces,
   edges and corners or sink inside it, one sphere against another toe,
@@ -118,8 +173,6 @@ def contact_case(env, xy, cmd, dyn, n_sub):
       *shape, generator=g)).to(dev)
   pick = lambda n: torch.randint(n, (E,), generator=g).to(dev)
   rows = torch.arange(E, device=dev)
-  model = env.model
-  tmpl = env.settled_template()
 
   q = tmpl.phys.joint_q + u(-0.15, 0.15, E, 12)
   lim = rows[::8]
@@ -441,6 +494,211 @@ def phase_training(env, meta, params, card):
   return launches
 
 
+def log_window_report(name, args, rep, counts):
+  """One line per field of a compare_with_plain report."""
+  n = {k: int(v.sum()) for k, v in counts.items()}
+  q, mdl = args[1].phys.joint_q, args[0]
+  past = int(((q < mdl.joint_lower) | (q > mdl.joint_upper)).any(-1).sum())
+  log(f"physics_window vs plain [{name}, {q.shape[0]} envs, {past} with a "
+      f"joint past its limit; point contacts over the substeps: "
+      f"{n.get('ground_contacts', 0)} ground, {n.get('box_contacts', 0)} "
+      f"box ({n.get('box_inside', 0)} inside), "
+      f"{n.get('sphere_contacts', 0)} sphere]")
+  for k, v in rep["fields"].items():
+    log(f"  {k:16s} f32 vs plain f32 max {v['max_abs_err']:.3e} | "
+        f"f64 kernel vs plain f64 max {v['f64_max_err']:.3e} | vs plain "
+        f"f64: f32 kernel max {v['f32_kernel_vs_f64']:.3e}, f32 plain max "
+        f"{v['f32_plain_vs_f64']:.3e}, f32 spread max "
+        f"{v['f32_spread']:.3e}; envs excused {v['excused']}, failed "
+        f"{v['failed']}")
+
+
+def phase_tf32(net, obs):
+  """pi_v under torch's default TF32 settings (matmul off, cuDNN
+  convolutions on: what the starter runs) against pi_v with TF32 off, on
+  the same observations."""
+  import torch
+  flags = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+  out = {}
+  try:
+    for name, cudnn in (("off", False), ("default", True)):
+      torch.backends.cuda.matmul.allow_tf32 = False
+      torch.backends.cudnn.allow_tf32 = cudnn
+      with torch.no_grad():
+        (mean, _, _), value = net.pi_v(obs)
+      out[name] = (mean, value)
+  finally:
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = flags
+  errs = {}
+  for i, k in enumerate(("mean", "value")):
+    errs[k] = _close(out["default"][i], out["off"][i], **TF32_TOL)
+  log(f"pi_v with torch's default TF32 (cuDNN convolutions TF32, matmul "
+      f"float32) vs TF32 off on {obs.shape[0]} observations: max abs diff "
+      f"mean {errs['mean'][0]:.3e}, value {errs['value'][0]:.3e}; "
+      f"tolerance atol {TF32_TOL['atol']:g} + rtol {TF32_TOL['rtol']:g}")
+  if not all(ok for _, ok in errs.values()):
+    raise AssertionError(f"TF32 pi_v outside {TF32_TOL}: {errs}")
+  return {k: e for k, (e, _) in errs.items()}
+
+
+def phase_hybrid(mpc_env, thin_env, card):
+  """The window kernel's hybrid mode against its plain version at the MPC
+  env's shapes; returns its numbers for the kernels line."""
+  import torch
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.ops import window_cost
+  dev = mpc_env.device
+  gen = torch.Generator(device=dev).manual_seed(5)
+  t = time.perf_counter()
+  states, _ = mpc_env.reset(NUM_ENVS, gen)
+  torch.cuda.synchronize()
+  log(f"MPC env reset at {NUM_ENVS} envs (one settle launch of "
+      f"{mpc_env.cfg.settle_steps * mpc_env.cfg.substeps} substeps): "
+      f"{time.perf_counter() - t:.2f}s")
+  low, high = mpc_env.action_low, mpc_env.action_high
+  rand_act = lambda: low + (high - low) * torch.rand(
+      NUM_ENVS, 2, generator=gen, device=dev)
+  for _ in range(2):
+    states, _, _, _, _ = mpc_env.step_batch(states, rand_act(), gen)
+  cases = {"MPC tick": mpc_window_inputs(mpc_env, states, rand_act())}
+  n_sub = cases["MPC tick"][8]
+  mask = cases["MPC tick"][-1]
+  stance = mask.reshape(NUM_ENVS, 4, 3)[..., 0]
+  log(f"MPC tick inputs: stance legs per env {stance.sum(-1).float().mean():.2f} "
+      f"on average, envs mixing stance and swing "
+      f"{int(((stance > 0).any(-1) & (stance == 0).any(-1)).sum())}")
+
+  # contact_case on the MPC model with random per-leg masks
+  g = torch.Generator().manual_seed(9)
+  rs = cases["MPC tick"][1]
+  xy = rs.phys.pos[:, :2]
+  tmpl = thin_env.settled_template()
+  cmd = tmpl.phys.joint_q + 0.3 * (
+      torch.rand(NUM_ENVS, 12, generator=g) - 0.5).to(dev)
+  legs = (torch.rand(NUM_ENVS, 4, generator=g) < 0.5).to(dev)
+  legs[:, 0], legs[:, 1] = True, False
+  tau_ff = (20.0 * (torch.rand(NUM_ENVS, 12, generator=g) - 0.5)).to(dev)
+  cases["contact"] = contact_case(
+      mpc_env.model, tmpl, xy, cmd, cases["MPC tick"][3], n_sub) + (
+          False, tau_ff, torch.repeat_interleave(legs.float(), 3, dim=-1))
+
+  max_err = 0.0
+  for name, args in cases.items():
+    counts = {}
+    pk.window_plain(*args, counts=counts)
+    ok, rep = pk.compare_with_plain(args)
+    torch.cuda.synchronize()
+    log_window_report(f"hybrid, {name}", args, rep, counts)
+    if not ok:
+      raise AssertionError(f"hybrid physics_window disagrees with plain on "
+                           f"{name}")
+    max_err = max(max_err, rep["max_abs_err"])
+
+  args = cases["MPC tick"]
+  before = pk.robot_window.launches
+  k_ms = time_ms(lambda: pk.robot_window(*args))
+  p_ms = time_ms(lambda: pk.window_plain(*args), n=20)
+  k_ms2 = time_ms(lambda: pk.robot_window(*args))
+  pk.robot_window.launches = before
+  counts = {}
+  pk.window_plain(*args, counts=counts)
+  nbytes, ops = window_cost.window_bytes_and_ops(
+      args[0], args[4], args[5], n_sub, False, counts, hybrid=True)
+  t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+  bound_ms = max(t_bytes, t_ops)
+  log(f"hybrid physics_window at {NUM_ENVS} envs x {n_sub} substeps on "
+      f"{card}: kernel {k_ms:.4f} ms / {k_ms2:.4f} ms (25 back-to-back "
+      f"calls, two turns), plain {p_ms:.3f} ms (20 calls); bound "
+      f"{bound_ms * 1e3:.3f} us ({nbytes} bytes -> {t_bytes * 1e3:.3f} us, "
+      f"{ops} f32 ops -> {t_ops * 1e3:.3f} us)")
+  return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+              bound_ms=bound_ms,
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              library_ms=None)
+
+
+def phase_mpc_collection(card, dev):
+  """One thin-goal MPC rollout at NUM_ENVS envs through the collector;
+  returns (hybrid launches, env-steps/s, settle launches)."""
+  import torch
+  from vision4leg_torch.collector import rollout as rollout_lib
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  env, meta, net, params = build_mpc_path(dev)
+  horizon = params["collector"]["epoch_frames"] // NUM_ENVS
+  rollout = make_rollout(env, meta, net, params)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  t = time.perf_counter()
+  cs = rollout_lib.init_collector(env, NUM_ENVS, gen)
+  torch.cuda.synchronize()
+  log(f"MPC init_collector at {NUM_ENVS} envs: "
+      f"{time.perf_counter() - t:.2f}s")
+  settles = env.settle_windows
+  pk.robot_window.launches = 0
+  att.fused_transformer_layer.launches = 0
+  t = time.perf_counter()
+  cs, traj, last_v = rollout(cs)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t
+  settle_launches = env.settle_windows - settles
+  hybrid = pk.robot_window.launches - settle_launches
+  rate = horizon * NUM_ENVS / dt
+  want = horizon * env.cfg.policy_freq
+  log(f"MPC rollout: {horizon} steps x {NUM_ENVS} envs in {dt:.3f}s = "
+      f"{rate:.1f} env-steps/s on {card} (first rollout of the process); "
+      f"physics_window launches {pk.robot_window.launches}: {hybrid} hybrid "
+      f"(expected {horizon} x {env.cfg.policy_freq} = {want}) + "
+      f"{settle_launches} settles of partial resets; transformer_layer "
+      f"launches {att.fused_transformer_layer.launches} (fused layer off)")
+  if hybrid != want or att.fused_transformer_layer.launches != 0:
+    raise AssertionError(f"MPC rollout launch counts: {hybrid} hybrid, "
+                         f"expected {want}")
+  for name in ("obs", "acts", "log_probs", "values", "rewards"):
+    if not torch.isfinite(getattr(traj, name)).all():
+      raise AssertionError(f"non-finite MPC {name}")
+  if traj.obs.shape != (horizon, NUM_ENVS, env.obs_dim) or not \
+      torch.isfinite(last_v).all():
+    raise AssertionError(f"MPC obs shape {tuple(traj.obs.shape)}")
+  log(f"MPC outputs finite; terminals {int(traj.terminals.sum())}; mean "
+      f"reward {float(traj.rewards.mean()):.4f}")
+  return hybrid, rate, settle_launches
+
+
+def phase_walk(card, dev):
+  """The JAX package's MPC behaviour criterion on the card."""
+  import torch
+  from vision4leg_torch.envs.mpc_env import A1MPCGymEnv, MpcEnvConfig
+  env = A1MPCGymEnv(MpcEnvConfig(
+      motor_control_mode="POSITION", clip_num=(0.3, 0.4), time_step_s=0.001,
+      num_action_repeat=5, policy_freq=20, terrain_type="plane",
+      target_vel=0.3, check_contact=False, settle_steps=300,
+      alive_reward=0.1), device=dev)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  state, _ = env.reset(WALK_ENVS, gen)
+  x0 = state.robot.phys.pos[:, 0].clone()
+  act = torch.tensor([[0.3, 0.0]], device=dev).expand(WALK_ENVS, 2)
+  z_min = torch.full((WALK_ENVS,), float("inf"), device=dev)
+  any_done = torch.zeros(WALK_ENVS, dtype=torch.bool, device=dev)
+  t = time.perf_counter()
+  for _ in range(WALK_STEPS):
+    state, _, _, done, _ = env.step_batch(state, act, gen)
+    z_min = torch.minimum(z_min, state.robot.phys.pos[:, 2])
+    any_done |= done
+  torch.cuda.synchronize()
+  dx = state.robot.phys.pos[:, 0] - x0
+  log(f"MPC walk on plane on {card}: {WALK_ENVS} envs x {WALK_STEPS} steps "
+      f"of (0.3, 0) in {time.perf_counter() - t:.2f}s; done {int(any_done.sum())}, "
+      f"base z min {float(z_min.min()):.4f} m, forward progress min "
+      f"{float(dx.min()):.4f} / max {float(dx.max()):.4f} m")
+  if any_done.any() or not bool((z_min > 0.15).all()) or not bool(
+      (dx > 0.15).all()):
+    raise AssertionError("the MPC controller did not walk forward on the "
+                         "card")
+  return float(dx.min())
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -523,7 +781,8 @@ def main() -> int:
       low + (high - low) * torch.rand(num_envs, 6, generator=gen, device=dev))
   cases = {"rollout": window_inputs(states, act12)}
   (_, rs, cmd, dyn, _, _, _, _, n_sub) = cases["rollout"]
-  cases["contact"] = contact_case(env, rs.phys.pos[:, :2], cmd, dyn, n_sub)
+  cases["contact"] = contact_case(env.model, env.settled_template(),
+                                  rs.phys.pos[:, :2], cmd, dyn, n_sub)
 
   max_err = 0.0
   for name, args in cases.items():
@@ -531,21 +790,7 @@ def main() -> int:
     pk.window_plain(*args, counts=counts)
     ok, rep = pk.compare_with_plain(args)
     torch.cuda.synchronize()
-    n = {k: int(v.sum()) for k, v in counts.items()}
-    q, mdl = args[1].phys.joint_q, args[0]
-    past = int(((q < mdl.joint_lower) | (q > mdl.joint_upper)).any(-1).sum())
-    log(f"physics_window vs plain [{name}, {num_envs} envs, {past} with a "
-        f"joint past its limit; point contacts over the substeps: "
-        f"{n.get('ground_contacts', 0)} ground, {n.get('box_contacts', 0)} "
-        f"box ({n.get('box_inside', 0)} inside), "
-        f"{n.get('sphere_contacts', 0)} sphere]")
-    for k, v in rep["fields"].items():
-      log(f"  {k:16s} f32 vs plain f32 max {v['max_abs_err']:.3e} | "
-          f"f64 kernel vs plain f64 max {v['f64_max_err']:.3e} | vs plain "
-          f"f64: f32 kernel max {v['f32_kernel_vs_f64']:.3e}, f32 plain max "
-          f"{v['f32_plain_vs_f64']:.3e}, f32 spread max "
-          f"{v['f32_spread']:.3e}; envs excused {v['excused']}, failed "
-          f"{v['failed']}")
+    log_window_report(name, args, rep, counts)
     if not ok:
       raise AssertionError(f"physics_window disagrees with plain on {name}")
     max_err = max(max_err, rep["max_abs_err"])
@@ -611,17 +856,36 @@ def main() -> int:
 
   # --- 5. the transformer-layer kernel against its plain version --------
   layer = phase_layer(net, traj.obs[0], card)
+  tf32_obs = traj.obs[0].clone()
   del cs, traj, last_v
   torch.cuda.empty_cache()
 
   # --- 6. the training path ------------------------------------------------
   launches = phase_training(env, meta, params, card)
+  torch.cuda.empty_cache()
 
-  # --- 7. results -----------------------------------------------------------
+  # --- 7. the starter's TF32 convolutions -----------------------------------
+  tf32 = phase_tf32(net, tf32_obs)
+  del tf32_obs
+
+  # --- 8. the window kernel's hybrid mode ----------------------------------
+  mpc_env, _, _, _ = build_mpc_path(dev)
+  hybrid = phase_hybrid(mpc_env, env, card)
+  del mpc_env
+  torch.cuda.empty_cache()
+
+  # --- 9. MPC collection ----------------------------------------------------
+  mpc_launches, mpc_rate, mpc_settles = phase_mpc_collection(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 10. the MPC controller walks ----------------------------------------
+  walk_dx = phase_walk(card, dev)
+
+  # --- 11. results ----------------------------------------------------------
   kernels = [dict(
       name="physics_window", route="cuda",
       source="vision4leg_torch/ops/csrc/physics_window.cu",
-      replaces="vision4leg_tpu/ops/physics_kernel.py:113",
+      replaces="vision4leg_tpu/ops/physics_kernel.py:122",
       launches=launches["physics_window"], max_abs_err=max_err, ms=k_ms,
       plain_ms=p_ms, bound_ms=bound_ms,
       bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -629,10 +893,19 @@ def main() -> int:
       name="transformer_layer", route="cuda",
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
       replaces="vision4leg_tpu/ops/attention.py:116",
-      launches=launches["transformer_layer"], **layer)]
+      launches=launches["transformer_layer"], **layer), dict(
+      name="physics_window_hybrid", route="cuda",
+      source="vision4leg_torch/ops/csrc/physics_window.cu",
+      replaces="vision4leg_tpu/ops/physics_kernel.py:122 (hybrid mode, "
+               ":125-136)",
+      launches=mpc_launches, **hybrid)]
   print(json.dumps({"kernels": kernels, "card": card,
                     "collection_env_steps_per_s": horizon * num_envs / dt,
-                    "training": launches["epochs"]}), flush=True)
+                    "training": launches["epochs"],
+                    "mpc_collection_env_steps_per_s": mpc_rate,
+                    "mpc_settle_launches": mpc_settles,
+                    "mpc_walk_min_progress_m": walk_dx,
+                    "tf32_pi_v_max_abs_diff": tf32}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

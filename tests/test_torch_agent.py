@@ -244,7 +244,7 @@ def test_unported_options_raise(thin_goal, tmp_path):
   kw = dict(env=env, cfg=_cfg(), num_envs=NUM_ENVS, seed=0,
             logger=_NullLogger(tmp_path), save_dir=str(tmp_path),
             device="cpu")
-  for extra, match in ((dict(mesh=object()), "item 12"),
+  for extra, match in ((dict(mesh=object()), "item 6"),
                        (dict(inference_dtype=torch.bfloat16), "bf16"),
                        (dict(eval_env=env), "sim2sim")):
     with pytest.raises(NotImplementedError, match=match):

@@ -1,0 +1,177 @@
+"""The port's PPOAgent.evaluate against the JAX agent's eval rollout
+(vision4leg_tpu/algo/agent.py:248-271) on the thin-goal env, on the CPU.
+
+Both agents hold the same LocoTransformer weights (flax params converted
+by params_from_flax) and the same frozen observation normalizer.  The
+eval envs start from the same states: the JAX eval reset's states are
+converted and handed to the torch agent's env, and the depth camera's
+blind spots are recomputed from the JAX state keys (as in
+tests/test_torch_env.py).  One of the two eval envs starts lifted and
+rolled past the fall threshold, so it is done after its first step and
+the done-masking of the returns and step counts is exercised next to an
+env that runs on.
+
+The JAX eval steps its per-env `step` (Cholesky solver, env-first
+engine), the port steps `step_batch` (the env-last window).  Tolerances:
+those test_torch_env.py holds its 4 steps to, rewards 2e-3, applied to
+the eval returns; the step counts (the done-masking) exactly.
+"""
+import json
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_env import CONFIG, _blind_from_key
+from vision4leg_tpu.algo.agent import PPOAgent as JaxAgent
+from vision4leg_tpu.algo.ppo import PPOConfig as JaxPPOConfig
+from vision4leg_tpu.data import normalizer as jnorm
+from vision4leg_tpu.envs.env import A1GymEnv as JaxEnv
+from vision4leg_tpu.envs.get_env import get_env as jax_get_env
+from vision4leg_tpu.models.actor_critic import \
+    LocoTransformerActorCritic as FlaxAC
+from vision4leg_torch import convert
+from vision4leg_torch.algo.agent import PPOAgent
+from vision4leg_torch.algo.ppo import PPOConfig
+from vision4leg_torch.convert import params_from_flax
+from vision4leg_torch.data.normalizer import NormalizerState
+from vision4leg_torch.envs import env as tenv_mod
+from vision4leg_torch.envs import tasks as ttasks
+from vision4leg_torch.envs.get_env import get_env as torch_get_env
+from vision4leg_torch.models.actor_critic import LocoTransformerActorCritic
+
+E = 2
+HORIZON = 3
+STATE = 84
+WIDTHS = dict(action_dim=6, state_input_shape=STATE,
+              visual_input_shape=(4, 64, 64), encoder_hidden_shapes=(32, 32),
+              transformer_params=((1, 64), (1, 64)),
+              append_hidden_shapes=(32, 32), token_dim=32)
+TILT = 0.95          # rad of roll: R[2,2] = cos(0.95) = 0.58 < 0.6 falls
+
+
+class TiltEnv(JaxEnv):
+  """The JAX thin-goal env whose reset lifts an env by 0.3 m and rolls it
+  by TILT when a bit drawn from its key is set (the others start as
+  usual): a deterministic function of the key, so the torch side gets
+  the same states."""
+
+  def reset(self, key):
+    state, _ = super().reset(key)
+    flag = jax.random.bernoulli(jax.random.fold_in(key, 7))
+    phys = state.robot.phys
+    half = 0.5 * TILT
+    tilt = jnp.array([jnp.cos(half), jnp.sin(half), 0.0, 0.0])
+    w1, x1, y1, z1 = tilt
+    w2, x2, y2, z2 = phys.quat
+    rolled = jnp.array([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2])
+    phys = phys.replace(
+        quat=jnp.where(flag, rolled, phys.quat),
+        pos=phys.pos.at[2].add(jnp.where(flag, 0.3, 0.0)))
+    state = state.replace(robot=state.robot.replace(phys=phys))
+    return state, self._observation(state)
+
+
+def _env_state(js):
+  """A torch EnvState from the JAX EnvState (numpy leaves, env axis)."""
+  t = convert.tensor
+  return tenv_mod.EnvState(
+      robot=convert.robot_state(js.robot), dyn=convert.dynamics(js.dyn),
+      terrain=convert.terrain(js.terrain),
+      task=ttasks.TaskState(**{k: t(getattr(js.task, k)) for k in (
+          "last_base_pos", "current_base_pos", "subgoal_trackers",
+          "target_vel_dir")}),
+      motor_hist=t(js.motor_hist), imu_hist=t(js.imu_hist),
+      disp_hist=t(js.disp_hist), last_action_hist=t(js.last_action_hist),
+      last_action=t(js.last_action), last_base_pos=t(js.last_base_pos),
+      frames=t(js.frames), step_counter=t(js.step_counter))
+
+
+class ReplayResetEnv(tenv_mod.A1GymEnv):
+  """The torch env whose reset returns given states and observations and
+  whose camera draws replay the JAX state keys."""
+  start = None
+  keys = None
+
+  def reset(self, n_env, gen):
+    states, obs = self.start
+    return states, obs
+
+  def draw_blind_spots(self, n_env, gen):
+    # the JAX step splits the state key in 3 and keeps [0]; the capture
+    # splits that and draws the blind spots from [1]
+    nxt = [jax.random.split(jax.random.split(k, 3)[0]) for k in self.keys]
+    self.keys = [k[0] for k in nxt]
+    out = [_blind_from_key(k[1]) for k in nxt]
+    return tenv_mod.BlindSpots(torch.tensor(np.stack([o[0] for o in out])),
+                               torch.tensor(np.stack([o[1] for o in out])))
+
+
+@pytest.fixture(scope="module")
+def evals(tmp_path_factory):
+  with open(CONFIG) as f:
+    params = json.load(f)
+  jenv, _ = jax_get_env(params["env_name"], params["env"])
+  tilt_env = TiltEnv(jenv.cfg)
+  tilt_env._template = jenv.settled_template()
+  flax_net = FlaxAC(**WIDTHS)
+  with warnings.catch_warnings():
+    warnings.simplefilter("ignore")      # the short-horizon warning
+    jagent = JaxAgent(
+        env=jenv, ac_module=flax_net,
+        cfg=JaxPPOConfig(epoch_frames=2 * E, max_episode_frames=999),
+        num_envs=E, seed=0, logger=None,
+        save_dir=str(tmp_path_factory.mktemp("jax_agent")),
+        num_eval_envs=E, eval_env=tilt_env, eval_horizon=HORIZON)
+  rng = np.random.default_rng(2)
+  nrm = jnorm.NormalizerState(
+      mean=jnp.asarray(rng.normal(0, 0.1, STATE).astype(np.float32)),
+      var=jnp.asarray(rng.uniform(0.5, 2.0, STATE).astype(np.float32)),
+      count=jnp.asarray(100.0))
+  k_ev = jax.random.PRNGKey(11)
+  jret, jsteps = jagent._eval(jagent.train_state.params, nrm, k_ev)
+
+  # the torch agent on the same start states, weights and normalizer
+  ks = jax.random.split(k_ev, E)
+  jstart, jobs = jax.jit(jax.vmap(tilt_env.reset))(ks)
+  tenv, _ = torch_get_env(params["env_name"], params["env"], device="cpu")
+  renv = ReplayResetEnv(tenv.cfg, device="cpu")
+  renv.start = (_env_state(jax.tree.map(np.asarray, jstart)),
+                torch.tensor(np.asarray(jobs)))
+  with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    tagent = PPOAgent(
+        env=renv, ac_module=LocoTransformerActorCritic(**WIDTHS),
+        cfg=PPOConfig(epoch_frames=2 * E), num_envs=E, seed=0, logger=None,
+        save_dir=str(tmp_path_factory.mktemp("torch_agent")),
+        num_eval_envs=E, eval_horizon=HORIZON, device="cpu")
+  tagent.module.load_state_dict(params_from_flax(
+      jax.tree.map(np.asarray, jagent.train_state.params)))
+  tagent.collector_state = tagent.collector_state.replace(
+      normalizer=NormalizerState(*(torch.tensor(np.asarray(x)) for x in (
+          nrm.mean, nrm.var, nrm.count))))
+  renv.keys = list(jstart.key)
+  tret, tsteps = tagent.evaluate()
+  flags = np.asarray(jstart.robot.phys.pos[:, 2] > 0.4)
+  return (np.asarray(jret), np.asarray(jsteps)), (tret.numpy(),
+                                                 tsteps.numpy()), flags
+
+
+def test_eval_returns_match_jax(evals):
+  (jret, _), (tret, _), flags = evals
+  # one env is rolled past the fall threshold, the other starts standing
+  assert flags.tolist() in ([True, False], [False, True])
+  np.testing.assert_allclose(tret, jret, atol=2e-3)
+
+
+def test_eval_done_masking_matches_jax(evals):
+  (_, jsteps), (_, tsteps), flags = evals
+  np.testing.assert_array_equal(tsteps, jsteps)
+  # the rolled env is done after its first step, the other runs on
+  np.testing.assert_array_equal(tsteps, np.where(flags, 1.0, HORIZON))

@@ -27,7 +27,11 @@ for n in names:
   importlib.import_module(n)
 for n in ("vision4leg_torch.algo.agent",
           "vision4leg_torch.starter.ppo_locotransformer",
-          "vision4leg_torch.ops.attention"):
+          "vision4leg_torch.ops.attention",
+          "vision4leg_torch.envs.mpc_env",
+          "vision4leg_torch.mpc.convex_mpc",
+          "vision4leg_torch.mpc.controllers",
+          "vision4leg_torch.mpc.leg_kinematics"):
   assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -55,6 +59,8 @@ def test_default_device_entry_points_raise_without_a_card():
     resolve_device()
   with pytest.raises(RuntimeError, match="no CUDA device"):
     get_env("A1MoveGround", {"env_build": {}})
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    get_env("A1MoveGroundMPC", {"env_build": {"policy_freq": 20}})
   assert resolve_device("cpu").type == "cpu"
   from vision4leg_torch.algo.agent import PPOAgent
   from vision4leg_torch.algo.ppo import PPOConfig

@@ -73,3 +73,40 @@ def test_kernel_rejects_bad_inputs(cuda):
   bad[6] = torch.ones(E)
   with pytest.raises(ValueError, match="cpu"):
     pk.robot_window(*bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sub", [5, 16])
+def test_hybrid_kernel_matches_plain(cuda, n_sub):
+  """Hybrid mode (the MPC env's window: torque = (1-mask) PD + mask
+  tau_ff) on a batch whose stance mask mixes stance and swing legs in
+  every env."""
+  E = 101
+  rng = np.random.default_rng(1)
+  model = a1_model.build(dt=0.001, device=cuda)
+  t = lambda x: torch.tensor(np.asarray(x, np.float32), device=cuda)
+  q0 = np.array([0, 0.9, -1.8] * 4, np.float32)
+  phys = engine.PhysState(
+      pos=t(np.c_[rng.uniform(-0.1, 0.1, (E, 2)), np.full(E, 0.27)]),
+      quat=t(np.tile([1.0, 0, 0, 0], (E, 1))),
+      joint_q=t(q0 + rng.uniform(-0.1, 0.1, (E, 12))),
+      ang=t(rng.normal(0, 0.2, (E, 3))), lin=t(rng.normal(0, 0.2, (E, 3))),
+      joint_qd=t(rng.normal(0, 0.5, (E, 12))))
+  dyn = a1.default_dynamics(model, (E,))
+  boxes = np.zeros((E, 8, 8), np.float32)
+  boxes[:, 0] = [0.15, 0.0, 0.05, 0.1, 0.1, 0.05, 0.3, 1.0]
+  legs = rng.uniform(size=(E, 4)) < 0.5
+  legs[:, 0], legs[:, 1] = True, False
+  mask = t(np.repeat(legs, 3, axis=1))
+  tau_ff = t(rng.uniform(-8.0, 8.0, (E, 12)))
+  cmd = t(q0 + rng.uniform(-0.3, 0.3, (E, 12)))
+  args = (model, a1.init_robot_state(phys), cmd, dyn, t(boxes),
+          torch.zeros(E, 0, 5, device=cuda), t(np.ones(E)), t(np.ones(E)),
+          n_sub, False, tau_ff, mask)
+  before = pk.robot_window.launches
+  new, _ = pk.robot_window(*args)
+  torch.cuda.synchronize()
+  assert pk.robot_window.launches == before + 1
+  assert torch.equal(new.observed_torques[mask > 0.5], tau_ff[mask > 0.5])
+  ok, report = pk.compare_with_plain(args)
+  assert ok, report

@@ -49,14 +49,15 @@ _HOST_LAUNCH = """
 template <typename T>
 static void run_all(const void* state_in, void* state_out, const void* params,
                     const void* model, void* pen_out, int E, int K, int Q,
-                    int n_substeps, int interpolate, double dt) {
+                    int n_substeps, int interpolate, int hybrid, double dt) {
   blockDim.x = 32;
   for (int e = 0; e < E; ++e) {
     blockIdx.x = e / 32;
     threadIdx.x = e % 32;
     physics_window_kernel<T>((const T*)state_in, (T*)state_out,
                              (const T*)params, (const T*)model, (T*)pen_out,
-                             E, K, Q, n_substeps, interpolate, (T)dt);
+                             E, K, Q, n_substeps, interpolate, hybrid,
+                             (T)dt);
   }
 }
 
@@ -64,27 +65,25 @@ extern "C" int physics_window_launch(const void* state_in, void* state_out,
                                      const void* params, const void* model,
                                      void* pen_out, int E, int K, int Q,
                                      int n_substeps, int interpolate,
-                                     double dt, int f64) {
+                                     int hybrid, double dt, int f64) {
   if (f64)
     run_all<double>(state_in, state_out, params, model, pen_out, E, K, Q,
-                    n_substeps, interpolate, dt);
+                    n_substeps, interpolate, hybrid, dt);
   else
     run_all<float>(state_in, state_out, params, model, pen_out, E, K, Q,
-                   n_substeps, interpolate, dt);
+                   n_substeps, interpolate, hybrid, dt);
   return 0;
 }
 """
 
 
-@pytest.fixture(scope="module")
-def host_launch(tmp_path_factory):
+def _build_host(d, src):
+  """Compile kernel source text `src` for the host in directory d; returns
+  its launch function."""
   gxx = shutil.which("g++")
   if gxx is None:
     pytest.skip("needs g++ to build the kernel source for the host")
-  d = tmp_path_factory.mktemp("host_kernel")
   (d / "cuda_runtime.h").write_text(_HOST_HEADER)
-  with open(pk.SOURCE) as f:
-    src = f.read()
   body = src[:src.index('extern "C" int physics_window_launch')]
   (d / "kernel.cpp").write_text(body + _HOST_LAUNCH)
   so = d / "kernel.so"
@@ -95,10 +94,16 @@ def host_launch(tmp_path_factory):
   assert proc.returncode == 0, proc.stderr
   assert "warning" not in proc.stderr, proc.stderr
   fn = ctypes.CDLL(str(so)).physics_window_launch
-  fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+  fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
       ctypes.c_double, ctypes.c_int]
   fn.restype = ctypes.c_int
   return fn
+
+
+@pytest.fixture(scope="module")
+def host_launch(tmp_path_factory):
+  with open(pk.SOURCE) as f:
+    return _build_host(tmp_path_factory.mktemp("host_kernel"), f.read())
 
 
 def _inputs(E, n_sph, seed, interpolate):
@@ -170,7 +175,8 @@ def test_kernel_source_matches_plain_on_smoke_contact_case(host_launch):
   xy = torch.rand(E, 2, generator=gen)
   cmd = env.settled_template().phys.joint_q + 0.3 * (
       torch.rand(E, 12, generator=gen) - 0.5)
-  args = smoke.contact_case(env, xy, cmd, a1.default_dynamics(env.model, (E,)),
+  args = smoke.contact_case(env.model, env.settled_template(), xy, cmd,
+                            a1.default_dynamics(env.model, (E,)),
                             env.cfg.num_action_repeat)
   ok, report = pk.compare_with_plain(
       args, run=lambda *a: pk._launch(*a, launch=host_launch))
@@ -183,3 +189,56 @@ def test_kernel_source_matches_plain_on_smoke_contact_case(host_launch):
   q = args[1].phys.joint_q
   assert bool(((q < env.model.joint_lower) | (q > env.model.joint_upper))
               .any())
+
+
+def _hybrid_args(E, seed):
+  """`_inputs` with 5 substeps in hybrid mode: feedforward torques of up
+  to 8 Nm and a stance mask that mixes stance and swing legs within every
+  env (whole legs, as the MPC env masks them)."""
+  args = _inputs(E, 2, seed, False)
+  rng = np.random.default_rng(seed + 100)
+  legs = rng.uniform(size=(E, 4)) < 0.5
+  legs[:, 0], legs[:, 1] = True, False
+  mask = torch.tensor(np.repeat(legs, 3, axis=1).astype(np.float32))
+  tau_ff = torch.tensor(rng.uniform(-8.0, 8.0, (E, 12)).astype(np.float32))
+  return args[:8] + (5, False, tau_ff, mask)
+
+
+def test_hybrid_kernel_source_matches_plain_on_host(host_launch):
+  """Hybrid mode (the MPC env's window: 5 substeps) on a mixed-mask
+  batch."""
+  args = _hybrid_args(64, seed=5)
+  ok, report = pk.compare_with_plain(
+      args, run=lambda *a: pk._launch(*a, launch=host_launch))
+  assert ok, report
+  new, _ = pk._launch(*args, launch=host_launch)
+  ff = args[-1] > 0.5
+  assert torch.equal(new.observed_torques[ff], args[-2][ff])
+
+
+# Mutations of the hybrid path that the comparison must catch.
+_HYBRID_MUTATIONS = {
+    "blend flipped": (
+        "tau[j] = (T(1.0) - m) * tau[j] + m * hyb[(size_t)j * E];",
+        "tau[j] = m * tau[j] + (T(1.0) - m) * hyb[(size_t)j * E];"),
+    "mask read from the tau_ff rows": (
+        "T m = hyb[(size_t)(NJ + j) * E];", "T m = hyb[(size_t)j * E];"),
+    "hybrid rows before the spheres": (
+        "const T* hyb = PP + (size_t)(P_BOX + 8 * K + 5 * Q) * E;",
+        "const T* hyb = PP + (size_t)(P_BOX + 8 * K) * E;"),
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(_HYBRID_MUTATIONS))
+def test_hybrid_comparison_catches_mutations(tmp_path, mutation):
+  """A copy of the kernel source with one fault in its hybrid path fails
+  compare_with_plain on the mixed-mask batch."""
+  with open(pk.SOURCE) as f:
+    src = f.read()
+  old, new = _HYBRID_MUTATIONS[mutation]
+  assert src.count(old) == 1
+  launch = _build_host(tmp_path, src.replace(old, new))
+  ok, _ = pk.compare_with_plain(
+      _hybrid_args(16, seed=1),
+      run=lambda *a: pk._launch(*a, launch=launch))
+  assert not ok

@@ -374,12 +374,64 @@ def test_robot_window_cpu_matches_jax_entry_point(models, window_case):
   np.testing.assert_allclose(new.last_robot_action.numpy(), cmd)
 
 
+def _hybrid_inputs(E, seed):
+  """Feedforward torques and a stance mask that mixes stance and swing
+  legs within every env (whole legs, as the MPC env masks them)."""
+  rng = np.random.default_rng(seed)
+  tau_ff = rng.uniform(-8.0, 8.0, (E, 12)).astype(np.float32)
+  legs = rng.uniform(size=(E, 4)) < 0.5
+  legs[:, 0], legs[:, 1] = True, False
+  return tau_ff, np.repeat(legs, 3, axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_sub", [5, 16])
+def test_hybrid_window_matches_jax_envlast(models, window_case, n_sub):
+  """The plain window in hybrid mode (torque = (1-mask) PD + mask tau_ff,
+  the MPC env's window) against vision4leg_tpu.ops.physics_envlast.window
+  with tau_ff/tau_mask, at the window tolerances; obs_tau is the blended
+  torque."""
+  jm, tm = models
+  E, jrs, dyn, cmd, boxes, spheres, fg, fb = window_case
+  tau_ff, mask = _hybrid_inputs(E, n_sub)
+  jdyn = ja1.DynamicsParams(**{k: jnp.asarray(v) for k, v in dyn.items()})
+  t = lambda x: jnp.moveaxis(jnp.asarray(x), 0, -1)
+  jnew, jpen = jax.jit(
+      lambda r, c, d, b, sp, f1, f2, tf, tm_: jpe.window(
+          jm, r, c, d, b, sp, f1, f2, n_sub, False, tf, tm_))(
+              _rs_to_envlast(jrs), t(cmd), _dyn_to_envlast(jdyn), t(boxes),
+              t(spheres), jnp.asarray(fg), jnp.asarray(fb), t(tau_ff),
+              t(mask))
+  rs, c, d, b, sp, f1, f2 = _torch_window_inputs(window_case)
+  new, pen = tpk.window_plain(tm, rs, c, d, b, sp, f1, f2, n_sub, False,
+                              torch.tensor(tau_ff), torch.tensor(mask))
+  tl = lambda x: x.movedim(0, -1).numpy()
+  for name, got, tol in (("pos", new.phys.pos, 1e-5),
+                         ("quat", new.phys.quat, 1e-5),
+                         ("q", new.phys.joint_q, 1e-5),
+                         ("qd", new.phys.joint_qd, 6e-3),
+                         ("lin", new.phys.lin, 6e-3),
+                         ("hist", new.obs_hist, 6e-3),
+                         ("obs_tau", new.observed_torques, 6e-3)):
+    np.testing.assert_allclose(tl(got), _np(jnew[name]), atol=tol,
+                               err_msg=name)
+  np.testing.assert_allclose(tl(pen), _np(jpen), atol=1e-4)
+  # stance joints report the feedforward torque itself
+  ff = mask > 0.5
+  np.testing.assert_array_equal(new.observed_torques.numpy()[ff], tau_ff[ff])
+  # and the blend changes the outcome: the PD-only window ends elsewhere
+  pd_only, _ = tpk.window_plain(tm, rs, c, d, b, sp, f1, f2, n_sub)
+  assert float((pd_only.phys.joint_q - new.phys.joint_q).abs().max()) > 1e-3
+
+
 def test_robot_window_rejects_hybrid_mode(models, window_case):
+  """Hybrid mode takes tau_ff and tau_mask together: one without the
+  other is refused, on the wrapper and on the plain version."""
   _, tm = models
   args = _torch_window_inputs(window_case)
-  with pytest.raises(NotImplementedError, match="hybrid"):
-    tpk.robot_window(tm, *args, 16, tau_ff=torch.zeros(4, 12),
-                     tau_mask=torch.zeros(4, 12))
+  with pytest.raises(ValueError, match="hybrid"):
+    tpk.robot_window(tm, *args, 16, tau_ff=torch.zeros(4, 12))
+  with pytest.raises(ValueError, match="hybrid"):
+    tpk.window_plain(tm, *args, 16, tau_mask=torch.zeros(4, 12))
 
 
 def test_kernel_buffers_follow_the_model(models):

@@ -2,6 +2,7 @@
 
     python3 tools/profile_torch_rollout.py            # a rollout
     python3 tools/profile_torch_rollout.py --train    # a PPO update epoch
+    python3 tools/profile_torch_rollout.py --mpc      # an MPC rollout
 
 Builds the main path as chip_smoke.py does (thin-goal JSON, 1024 envs,
 LocoTransformer at full width, random weights from a seed), runs one
@@ -21,6 +22,12 @@ TF32 settings: matmul off, cuDNN convolutions on) trains one epoch to
 warm up, then one more with the update under the profiler, with spans
 on the value and policy forwards, the fused layer's launch and its
 recomputed backward, and the two Adam steps.
+
+With --mpc it profiles the MPC collection path instead (chip_smoke.py's
+phase 9: config/mpc/locotransformer/thin-goal.json, 1024 envs, an 8-step
+rollout), with spans on the env step, the per-step KKT inverse, the
+controller tick (gait, estimator, swing, warm-QP stance), the hybrid
+window's launch, the camera and the policy.
 """
 from __future__ import annotations
 
@@ -179,7 +186,9 @@ def main() -> int:
   if "--train" in sys.argv[1:]:
     return train(card)
   dev = torch.device("cuda")
-  env, meta, net, params = chip_smoke.build_main_path(dev)
+  mpc = "--mpc" in sys.argv[1:]
+  build = chip_smoke.build_mpc_path if mpc else chip_smoke.build_main_path
+  env, meta, net, params = build(dev)
 
   def span(name, fn):
     def wrapped(*args, **kwargs):
@@ -189,6 +198,11 @@ def main() -> int:
 
   spans = ("env.reset", "env.step_batch", "physics_window", "camera",
            "policy.pi_v")
+  if mpc:
+    from vision4leg_torch.mpc import convex_mpc
+    spans += ("kkt_inverse", "controller_tick")
+    convex_mpc.kkt_inverse = span("kkt_inverse", convex_mpc.kkt_inverse)
+    env.controller_tick = span("controller_tick", env.controller_tick)
   env.reset = span("env.reset", env.reset)
   env.step_batch = span("env.step_batch", env.step_batch)
   env._render = span("camera", env._render)
@@ -223,8 +237,8 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
   _report(prof, wall, spans, card, dict(
-      envs=n, steps=horizon, steady_wall_s=walls,
-      steady_env_steps_per_s=rate))
+      config=chip_smoke.MPC_CONFIG if mpc else chip_smoke.CONFIG, envs=n,
+      steps=horizon, steady_wall_s=walls, steady_env_steps_per_s=rate))
   return 0
 
 

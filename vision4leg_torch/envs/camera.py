@@ -150,7 +150,7 @@ def render_depth(trunk_pos, trunk_rot, terrain: TerrainState,
   if terrain.obstacle_spheres.shape[-2] > 0:
     raise NotImplementedError("render_depth: obstacle spheres "
                               "(random_sphere_with_subgoal) are not ported "
-                              "yet (ROADMAP queue 1 item 9)")
+                              "yet (ROADMAP queue 1 item 4)")
   if show_subgoals:
     sg = terrain.subgoals
     centers = torch.cat([sg, torch.full_like(sg[..., :1], SUBGOAL_RADIUS)],

@@ -116,7 +116,8 @@ class EnvConfig:
     return self.proprio_dim + self.image_dim
 
 
-# options of the JAX env this port does not run yet (ROADMAP queue 1 item 9)
+# options of the JAX env this port does not run yet (ROADMAP queue 1 items
+# 3-4)
 _UNPORTED = ("enable_action_filter", "reset_frame_idx",
              "reset_frame_idx_each_step", "random_shape", "moving",
              "interpolation", "random_dir", "rotate_sensor")
@@ -170,6 +171,20 @@ class A1GymEnv:
   NEAR_BOXES = 8   # boxes kept per env for contacts (nearest by surface)
 
   def __init__(self, cfg: EnvConfig, device=None):
+    self._setup(cfg, device)
+    if cfg.clip_num is not None:
+      clip = np.asarray(cfg.clip_num, np.float32)
+      lb, ub = P.INIT_MOTOR_ANGLES - clip, P.INIT_MOTOR_ANGLES + clip
+    else:
+      lb, ub = P.JOINT_LOWER, P.JOINT_UPPER
+    self._act_lb12 = torch.tensor(lb, dtype=torch.float32, device=self.device)
+    self._act_ub12 = torch.tensor(ub, dtype=torch.float32, device=self.device)
+    self._template = None
+
+  def _setup(self, cfg: EnvConfig, device):
+    """Refuse what the port does not run; the device, the robot model,
+    the start position and the standing command (shared with the MPC
+    env)."""
     if cfg.motor_control_mode != "POSITION":
       raise NotImplementedError("only POSITION control for the RL env")
     if cfg.rgbd:
@@ -179,28 +194,20 @@ class A1GymEnv:
     if cfg.terrain_type not in terr.TERRAIN_GENERATORS:
       raise NotImplementedError(
           f"terrain {cfg.terrain_type!r} is not ported yet; non-flat and "
-          "other terrains are ROADMAP queue 1 item 9")
+          "other terrains are ROADMAP queue 1 items 2-4")
     unported = [k for k in _UNPORTED if getattr(cfg, k)]
     if unported:
       raise NotImplementedError(
           f"env options {unported} are not ported yet (ROADMAP queue 1 "
-          "item 9)")
+          "items 3-4)")
     self.cfg = cfg
     self.device = resolve_device(device)
     self.model = a1_model.build(dt=cfg.time_step_s / cfg.substeps,
                                 device=self.device)
     self._init_pos = torch.tensor(terr.INIT_POSITION[cfg.terrain_type],
                                   dtype=torch.float32, device=self.device)
-    if cfg.clip_num is not None:
-      clip = np.asarray(cfg.clip_num, np.float32)
-      lb, ub = P.INIT_MOTOR_ANGLES - clip, P.INIT_MOTOR_ANGLES + clip
-    else:
-      lb, ub = P.JOINT_LOWER, P.JOINT_UPPER
-    self._act_lb12 = torch.tensor(lb, dtype=torch.float32, device=self.device)
-    self._act_ub12 = torch.tensor(ub, dtype=torch.float32, device=self.device)
     self._init_cmd = torch.tensor(P.INIT_MOTOR_ANGLES, dtype=torch.float32,
                                   device=self.device)
-    self._template = None
 
   @property
   def action_low(self):

@@ -4,6 +4,8 @@ env_dict.py).  NormAct and obs normalization live in the collector,
 TimeLimit in the rollout bookkeeping, reward_scale in `meta`."""
 from __future__ import annotations
 
+import dataclasses
+
 from vision4leg_torch.envs.env import A1GymEnv, EnvConfig
 
 TIMELIMIT = {"A1MoveGround": 1000, "A1MoveGroundMPC": 1000}
@@ -53,5 +55,12 @@ def get_env(env_name: str, env_params: dict, device=None):
     cfg = env_config_from_build_params(dict(env_params.get("env_build", {})))
     return A1GymEnv(cfg, device=device), meta
   if env_name == "A1MoveGroundMPC":
-    raise NotImplementedError("A1MoveGroundMPC is ROADMAP queue 1 item 10")
+    from vision4leg_torch.envs.mpc_env import A1MPCGymEnv, MpcEnvConfig
+    env_build = dict(env_params.get("env_build", {}))
+    policy_freq = env_build.pop("policy_freq", 10)
+    vision_only = env_build.pop("vision_only", False)
+    base = env_config_from_build_params(env_build)
+    cfg = MpcEnvConfig(**dataclasses.asdict(base), policy_freq=policy_freq,
+                       vision_only=vision_only)
+    return A1MPCGymEnv(cfg, device=device), meta
   raise NotImplementedError(f"unknown env {env_name}")

@@ -8,7 +8,7 @@ and obstacle spheres, batched over a leading env axis.  Ported here:
 by Poisson-disc sampling in the corridor x in [2.5, 28.5], y in [-3, 3],
 two fence walls at y = +-3.1, 50 subgoal spheres of radius 0.2).  The
 other terrains of the JAX package (heightfields, stairs, spheres,
-chair_desk, hill, mount) are ROADMAP queue 1 item 9.
+chair_desk, hill, mount) are ROADMAP queue 1 items 2-4.
 """
 from __future__ import annotations
 

@@ -62,7 +62,7 @@ class LocoTransformerEncoder(nn.Module):
     super().__init__()
     if in_channels != 4:
       raise NotImplementedError("only the 4-frame depth tokenizer is ported "
-                                "(rgb modalities: ROADMAP queue 1 item 9)")
+                                "(rgb modalities: ROADMAP queue 1 item 4)")
     self.state_mlp = MLPBase(state_dim, hidden_shapes)
     self.state_proj = nn.Linear(self.state_mlp.out_dim, token_dim)
     self.nature = NatureEncoder(in_channels)
@@ -117,7 +117,7 @@ class TransformerEncoderLayer(nn.Module):
         raise NotImplementedError(
             f"fused transformer layer: one head and float32 only, got "
             f"{self.n_head} heads and {x.dtype} (bf16 collection: ROADMAP "
-            "queue 1 item 7)")
+            "queue 1 item 3)")
       return attention.fused_transformer_layer_ad(
           x, attention.weights_from_layer(self))
     B, T, D = x.shape

@@ -2,8 +2,13 @@
 // dynamics, penalty contacts and semi-implicit Euler for every env, plus
 // the post-window contact read.  One CUDA thread per env.
 //
-// Replaces the TPU kernel vision4leg_tpu/ops/physics_kernel.py:113
-// (robot_window_pallas, whose math is ops/physics_envlast.py:494 window).
+// Replaces the TPU kernel vision4leg_tpu/ops/physics_kernel.py:122
+// (robot_window_pallas, whose math is ops/physics_envlast.py:494 window),
+// its hybrid-control mode included (physics_kernel.py:125-136, math at
+// physics_envlast.py:534-535): with `hybrid` set, joint j's torque is
+// (1 - m_j) PD_j + m_j tau_ff_j, with tau_ff and the mask m read from 24
+// parameter rows after the spheres and fixed across the window (the MPC
+// env: swing legs under PD, stance legs on the MPC's feedforward torque).
 // Its plain PyTorch version is vision4leg_torch/ops/physics_envlast.py.
 //
 // What bounds it on an H100: neither bytes nor FLOPs.  A window at 1024
@@ -66,7 +71,8 @@
 #define P_IS 75
 #define P_FG 88
 #define P_FB 89
-#define P_BOX 90       // K x 8 rows, then Q x 5 sphere rows
+#define P_BOX 90       // K x 8 rows, then Q x 5 sphere rows, then (hybrid
+                       // mode) 12 tau_ff and 12 mask rows
 
 // model buffer offsets (floats)
 #define M_AXIS 0       // 12 x 3
@@ -236,7 +242,7 @@ __global__ void __launch_bounds__(32)
 physics_window_kernel(const T* __restrict__ sin_, T* __restrict__ sout,
                       const T* __restrict__ par, const T* __restrict__ mdl,
                       T* __restrict__ pen_out, int E, int K, int Q,
-                      int n_substeps, int interpolate, T dt) {
+                      int n_substeps, int interpolate, int hybrid, T dt) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const T* S = sin_ + e;
@@ -261,6 +267,7 @@ physics_window_kernel(const T* __restrict__ sin_, T* __restrict__ sout,
   const T mu_g = PAR(P_FG), mu_b = PAR(P_FB);
   const T* boxes = PP + (size_t)P_BOX * E;
   const T* spheres = PP + (size_t)(P_BOX + 8 * K) * E;
+  const T* hyb = PP + (size_t)(P_BOX + 8 * K + 5 * Q) * E;
   const V3<T> grav = ld3(mdl + M_GRAV);
 
   T R[NB][9], p[NB][3], ax[NJ][3];
@@ -279,6 +286,10 @@ physics_window_kernel(const T* __restrict__ sin_, T* __restrict__ sout,
         cmd = prev + lerp * (cmd - prev);
       }
       tau[j] = PAR(P_STR + j) * (-PAR(P_KP + j) * (q[j] - cmd) - PAR(P_KD + j) * qd[j]);
+      if (hybrid) {
+        T m = hyb[(size_t)(NJ + j) * E];
+        tau[j] = (T(1.0) - m) * tau[j] + m * hyb[(size_t)j * E];
+      }
     }
 
     forward_kinematics(mdl, pos, quat, q, R, p, ax);
@@ -518,12 +529,14 @@ physics_window_kernel(const T* __restrict__ sin_, T* __restrict__ sout,
 }
 
 // Launches the window on `stream`.  f64 selects the double instantiation
-// (every buffer then holds doubles).  Returns cudaGetLastError().
+// (every buffer then holds doubles); hybrid reads the tau_ff and mask
+// rows.  Returns cudaGetLastError().
 extern "C" int physics_window_launch(const void* state_in, void* state_out,
                                      const void* params, const void* model,
                                      void* pen_out, int E, int K, int Q,
                                      int n_substeps, int interpolate,
-                                     double dt, int f64, void* stream) {
+                                     int hybrid, double dt, int f64,
+                                     void* stream) {
   const int threads = 32;
   const int blocks = (E + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
@@ -531,11 +544,11 @@ extern "C" int physics_window_launch(const void* state_in, void* state_out,
     physics_window_kernel<double><<<blocks, threads, 0, st>>>(
         (const double*)state_in, (double*)state_out, (const double*)params,
         (const double*)model, (double*)pen_out, E, K, Q, n_substeps,
-        interpolate, dt);
+        interpolate, hybrid, dt);
   else
     physics_window_kernel<float><<<blocks, threads, 0, st>>>(
         (const float*)state_in, (float*)state_out, (const float*)params,
         (const float*)model, (float*)pen_out, E, K, Q, n_substeps,
-        interpolate, (float)dt);
+        interpolate, hybrid, (float)dt);
   return (int)cudaGetLastError();
 }

@@ -425,7 +425,7 @@ def substep(model: Model, st, tau_j, mass_e, inertia_e, damping_e,
 def window(model: Model, rs: Dict[str, torch.Tensor], action,
            dyn: Dict[str, torch.Tensor], boxes, spheres, fric_ground,
            fric_box, n_substeps: int, interpolate: bool = False,
-           counts: Optional[dict] = None
+           counts: Optional[dict] = None, tau_ff=None, tau_mask=None
            ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
   """Full action-repeat window, env-last.
 
@@ -434,6 +434,10 @@ def window(model: Model, rs: Dict[str, torch.Tensor], action,
   action (12,E); dyn: kp/kd/strength (12,E), motor_friction /
   joint_friction (E,), mass_scale/inertia_scale (B,E); boxes (K,8,E);
   spheres (Q,5,E) or None; fric_ground/fric_box (E,).
+  tau_ff/tau_mask (12,E), optional: hybrid control (the MPC env) — the
+  joint torque is (1 - mask) * PD(action) + mask * tau_ff, both fixed
+  across the window (swing legs track `action` under PD, stance legs
+  apply the MPC feedforward torque); obs_tau is that blended torque.
   Returns (new rs, pen_end (P,2,E) of the post-window state).  With
   `counts`, the substeps add their contact counts to it (flat_contact).
   """
@@ -451,6 +455,8 @@ def window(model: Model, rs: Dict[str, torch.Tensor], action,
       cmd = action
     obs_tau = motor_torques(st["q"], st["qd"], cmd, dyn["kp"], dyn["kd"],
                             dyn["strength"])
+    if tau_ff is not None:
+      obs_tau = (1.0 - tau_mask) * obs_tau + tau_mask * tau_ff
     st, _ = substep(model, st, obs_tau, mass_e, inertia_e, damping_e,
                     coulomb_e, boxes, spheres, fric_ground, fric_box,
                     counts)

@@ -57,7 +57,7 @@ def build_library() -> ctypes.CDLL:
                         "f64" if "IdE" in k else "f32": v for k, v in
                         nvcc.ptxas_counts(info["log"]).items()})
   fn = lib.physics_window_launch
-  fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+  fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
       ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
   fn.restype = ctypes.c_int
   _LIB["lib"] = lib
@@ -127,11 +127,14 @@ def _check(name, x, shape, device, dtype):
 
 def _launch(model: Model, rs: a1.RobotState, command, dyn, boxes, spheres,
             fric_ground, fric_box, n_substeps: int,
-            interpolate: bool = False, launch=None):
+            interpolate: bool = False, tau_ff=None, tau_mask=None,
+            launch=None):
   """Check, pack into the kernel's env-last buffers, launch, unpack.
   `launch(*pointers_and_sizes)` defaults to the built kernel on the
   current CUDA stream.  The kernel runs in float32 or, for float64
-  inputs, in its float64 instantiation."""
+  inputs, in its float64 instantiation.  In hybrid mode (tau_ff and
+  tau_mask given) their 24 rows follow the sphere rows of the parameter
+  buffer."""
   E = command.shape[0]
   K, Q = boxes.shape[1], spheres.shape[1]
   dev = command.device
@@ -155,6 +158,9 @@ def _launch(model: Model, rs: a1.RobotState, command, dyn, boxes, spheres,
             ("inertia_scale", dyn.inertia_scale, (E, nb)),
             ("boxes", boxes, (E, K, 8)), ("spheres", spheres, (E, Q, 5)),
             ("fric_ground", fric_ground, (E,)), ("fric_box", fric_box, (E,))]
+  hybrid = _hybrid(tau_ff, tau_mask)
+  if hybrid:
+    checks += [("tau_ff", tau_ff, (E, 12)), ("tau_mask", tau_mask, (E, 12))]
   for name, x, shape in checks:
     _check(name, x, shape, dev, dtype)
   if model.mass.device != dev or model.mass.dtype != dtype:
@@ -174,15 +180,16 @@ def _launch(model: Model, rs: a1.RobotState, command, dyn, boxes, spheres,
              joint_friction=dl["joint_friction"],
              mass_scale=dl["mass_scale"], inertia_scale=dl["inertia_scale"],
              fric_ground=fric_ground, fric_box=fric_box)
+  hyb = [_t(tau_ff), _t(tau_mask)] if hybrid else []
   params = torch.cat([par[k].reshape(-1, E) for k, _ in PARAM_ROWS]
                      + [_t(boxes).reshape(-1, E), _t(spheres).reshape(-1, E)]
-                     ).contiguous()
+                     + hyb).contiguous()
   mdl = model_buffer(model)
   state_out = torch.empty_like(state_in)
   pen = torch.empty(model.ncp, 2, E, device=dev, dtype=dtype)
   err = launch(state_in.data_ptr(), state_out.data_ptr(), params.data_ptr(),
                mdl.data_ptr(), pen.data_ptr(), E, K, Q, n_substeps,
-               int(interpolate), float(model.dt),
+               int(interpolate), int(hybrid), float(model.dt),
                int(dtype == torch.float64))
   if err != 0:
     raise RuntimeError(f"physics_window_launch failed: cudaError {err}")
@@ -207,31 +214,44 @@ def robot_window(model: Model, rs: a1.RobotState, command, dyn, boxes,
   rs/command (E,12)/dyn/boxes (E,K,8)/spheres (E,Q,5)/fric_* (E,) carry a
   leading env axis; returns (new RobotState, pen_end (E, P, 2) — [ground,
   obstacle] penetration of the post-window state).
+  tau_ff/tau_mask (E, 12), optional together: hybrid control (the MPC
+  env), torque = (1 - mask) * PD(command) + mask * tau_ff, both fixed
+  across the window.
   """
-  if tau_ff is not None or tau_mask is not None:
-    raise NotImplementedError("robot_window: hybrid mode (tau_ff/tau_mask) "
-                              "is not ported yet (ROADMAP queue 2)")
+  _hybrid(tau_ff, tau_mask)
   if command.device.type == "cuda":
     return _launch(model, rs, command, dyn, boxes, spheres, fric_ground,
-                   fric_box, n_substeps, interpolate)
+                   fric_box, n_substeps, interpolate, tau_ff, tau_mask)
   if command.device.type != "cpu":
     raise ValueError(f"robot_window: unsupported device {command.device}")
   return window_plain(model, rs, command, dyn, boxes, spheres, fric_ground,
-                      fric_box, n_substeps, interpolate)
+                      fric_box, n_substeps, interpolate, tau_ff, tau_mask)
 
 
 robot_window.launches = 0
 
 
+def _hybrid(tau_ff, tau_mask) -> bool:
+  """Whether the window runs in hybrid mode; tau_ff and tau_mask come
+  together or not at all."""
+  if (tau_ff is None) != (tau_mask is None):
+    raise ValueError("robot_window: hybrid mode needs both tau_ff and "
+                     "tau_mask")
+  return tau_ff is not None
+
+
 def window_plain(model: Model, rs: a1.RobotState, command, dyn, boxes,
                  spheres, fric_ground, fric_box, n_substeps: int,
-                 interpolate: bool = False, counts=None):
+                 interpolate: bool = False, tau_ff=None, tau_mask=None,
+                 counts=None):
   """The plain PyTorch version on any device (what the CPU path runs and
   what the kernel is held against); `counts` as in physics_envlast.window."""
+  hybrid = _hybrid(tau_ff, tau_mask)
   new_el, pen = pe.window(
       model, rs_to_envlast(rs), _t(command), dyn_to_envlast(dyn), _t(boxes),
       _t(spheres) if spheres.shape[1] > 0 else None, fric_ground, fric_box,
-      n_substeps, interpolate, counts)
+      n_substeps, interpolate, counts, _t(tau_ff) if hybrid else None,
+      _t(tau_mask) if hybrid else None)
   return rs_from_envlast(new_el), pen.movedim(-1, 0)
 
 
@@ -282,7 +302,9 @@ ROUNDING_SAMPLES = 8
 
 def compare_with_plain(args, run=None):
   """Hold the kernel against its plain version on the window inputs
-  `args`; `run(*args)` runs the kernel (default: `robot_window`).
+  `args` (the positional arguments of `robot_window`, hybrid mode's
+  tau_ff and tau_mask included); `run(*args)` runs the kernel (default:
+  `robot_window`).
 
   Two checks, on every env and every output field:
   * float64: the kernel's float64 instantiation against the plain

@@ -16,7 +16,10 @@ iterations) needs for one run's data, not the kernel's own arithmetic:
     masses and inertias, friction sums, box yaw sines) once per window;
   * where a count could go either way, the lower is taken: joint-limit
     torques of violated limits, the sum of ground and obstacle forces on
-    one point and the obstacle max of the post-window read are left out.
+    one point and the obstacle max of the post-window read are left out;
+  * in hybrid mode (the MPC env) each joint's torque blend
+    (1 - m) PD + m tau_ff costs 4 per substep, and the window reads 24
+    more parameter rows.
 Each +, -, x, /, sqrt, sin, cos, tanh, min, max and comparison counts 1
 (a multiply-add counts 2); negation and copies are free.
 """
@@ -207,17 +210,18 @@ SPHERE_FORCE = 40
 
 
 def window_bytes_and_ops(model: Model, boxes, spheres, n_substeps: int,
-                         interpolate: bool, counts: Dict[str, object]
-                         ) -> Tuple[int, int]:
+                         interpolate: bool, counts: Dict[str, object],
+                         hybrid: bool = False) -> Tuple[int, int]:
   """Bytes the window must move (each input read once, each output
   written once, float32) and the operations it needs, for boxes (E,K,8),
   spheres (E,Q,5) and the `counts` of the plain version's run on the same
-  inputs (`physics_envlast.window`)."""
+  inputs (`physics_envlast.window`); `hybrid` for the tau_ff/mask blend."""
   E, K = boxes.shape[0], boxes.shape[1]
   Q = spheres.shape[1]
   nj, P = model.njoint, model.ncp
   n_state = 3 + 4 + nj + 3 + 3 + nj + nj + 20 * 31
-  n_par = nj * (5 if interpolate else 4) + 2 + 2 * model.nbody + 2
+  n_par = (nj * (5 if interpolate else 4) + 2 + 2 * model.nbody + 2
+           + (2 * nj if hybrid else 0))
   n_in = n_state + n_par + 8 * K + 5 * Q
   n_out = n_state + 2 * P
   n_model = 384
@@ -230,6 +234,7 @@ def window_bytes_and_ops(model: Model, boxes, spheres, n_substeps: int,
   fk = fk_ops(model)
   per_substep = (
       nj * (5 + (2 if interpolate else 0))  # PD torques
+      + (4 * nj if hybrid else 0)           # hybrid blend
       + fk + velocity_ops(model) + mass_ops
       + int(pts.sum()) + 2 * P              # points, ground phi test
       + nj * 10 + 6 + 2 * nj + nj           # joint torques, rhs, armature

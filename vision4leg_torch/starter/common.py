@@ -57,12 +57,12 @@ def run_experiment(build_module):
   params = get_params(args.config)
   if _flag("V4L_BF16_COLLECT"):
     raise NotImplementedError("V4L_BF16_COLLECT: bf16 collection is not "
-                              "ported (ROADMAP queue 1 item 7, left out)")
+                              "ported (ROADMAP queue 1 item 3, left out)")
   if torch.cuda.device_count() > 1 and os.environ.get("V4L_MESH",
                                                       "1") != "0":
     raise NotImplementedError(
         "more than one card: multi-device data parallelism is ROADMAP "
-        "queue 1 item 12; set V4L_MESH=0 (or CUDA_VISIBLE_DEVICES) to "
+        "queue 1 item 6; set V4L_MESH=0 (or CUDA_VISIBLE_DEVICES) to "
         "train on one card")
 
   env, meta = get_env(params["env_name"], params["env"])
