@@ -4,34 +4,59 @@
 
 Phases, each printed with the seconds since start:
   1. card name and power limit (nvidia-smi), torch / CUDA versions;
-  2. build of the main path's CUDA kernels (physics_window,
-     transformer_layer) from this checkout's sources, one nvcc each, all
-     started together, with ptxas's register and spill counts;
+  2. build of the main path's CUDA kernels from this checkout's sources,
+     one nvcc for each source, all started together (physics_window.cu;
+     transformer_layer.cu with the layer's forward and backward), with
+     ptxas's register and spill counts;
   3. the window kernel against its plain PyTorch version, on the card,
      at the shapes the main path gives it (1024 envs), on rollout states
-     and on a batch standing on boxes and spheres (`contact_case`), by
-     `physics_kernel.compare_with_plain`; then both timed with CUDA
-     events, and the bound of `ops/window_cost.py` for the rollout data;
+     and on a batch standing on boxes and spheres (`contact_case`), and
+     on the 101-env batch of the card test
+     tests/test_torch_kernel_cuda.py::test_kernel_matches_plain[2]
+     (`sphere_case`), by `physics_kernel.compare_with_plain`; then both
+     timed with CUDA events, and the bound of `ops/window_cost.py` for
+     the rollout data;
   4. the collection path: thin-goal LocoTransformer collection (get_env
      from config/rl/static/locotransformer/thin-goal.json, the
      actor-critic at the config's full width with seeded random weights,
      init_collector, one 16-step rollout at 1024 envs, fused layer off),
      with every kernel's launch count set to 0 just before the rollout
      and read just after;
-  5. the transformer-layer kernel against its plain version
-     (`ops/attention.layer_math`) at B = 1024, 1000 and 8, on the
-     encoder's tokens of phase 4's observations and on random x, forward
-     and gradient (`fused_transformer_layer_ad` against autograd of the
-     plain version); kernel, plain version and torch's own
+  5. the transformer-layer kernels against their plain versions at
+     B = 1024, 1000 and 8, on the encoder's tokens of phase 4's
+     observations and on random x: the forward against
+     `ops/attention.layer_math` (its residual-saving mode must give the
+     same bits), what the backward kernel writes against
+     `layer_backward_rows` on the residuals the forward kernel wrote, and
+     end to end
+     `fused_transformer_layer_ad`'s gradients against autograd of
+     `layer_math` (`attention.compare_grads_with_plain`: within the JAX
+     package's tolerance of the float32 autograd or, where float32 cannot
+     do better, within twice the plain layer's own float32 spread of the
+     float64 autograd, the spread taken per gradient tensor over the
+     inputs and eight copies moved by one float32 rounding unit.  Two
+     things make float32 part there: a weight gradient sums 17,408
+     products at B = 1024, and two float32 computations of it part by
+     ~1e-4 where it cancels; and an FFN pre-activation within ~1e-7 of
+     zero can take the other side of the ReLU in the kernel's forward
+     than in the plain one, which moves the sample's whole gradient by
+     O(0.1-1).  The one-ulp copies of the plain layer flip such kinks
+     too, and the spread includes them.  The run prints the elements
+     excused and every mask flip with its plain pre-activation); two
+     backward calls must give the same bits; the backward kernel's ptxas
+     counts; the forward, and forward + backward under autograd, of the
+     kernels, of the plain version and of torch's own
      nn.TransformerEncoderLayer (the yardstick, never called by the port)
-     timed with CUDA events, and the bound of `attention.layer_cost`;
+     timed with CUDA events, with the bounds of `attention.layer_cost` and
+     `layer_grad_cost`;
   6. the training path: the port's starter pieces build a PPOAgent from
      the same config (1024 envs, full width, fused layer on in
      collection and update), which trains two epochs with an eval after
      each and a checkpoint after the second, the launch counts set to 0
      just before and read just after and held to the exact counts of the
-     path; metrics finite, parameters changed, the checkpoint restored
-     into a second agent equal to the first;
+     path (the layer backward: 4 per minibatch, 4 x 48 = 192 an epoch);
+     metrics finite, parameters changed, the checkpoint restored into a
+     second agent equal to the first;
   7. the starter's TF32 setting: `pi_v` on phase 4's observations under
      torch's defaults (cuDNN convolutions in TF32, as the starter runs)
      held against `pi_v` with TF32 off, at TF32_TOL;
@@ -140,6 +165,54 @@ def mpc_window_inputs(env, states, actions):
       states.controller, rs, pen, states.current_time, lin, ang)
   return (env.model, rs, swing_q, states.dyn, boxes, spheres, fg, fb,
           env.cfg.num_action_repeat * env.cfg.substeps, False, tau_ff, mask)
+
+
+def rollout_window_inputs(env, st, act12):
+  """The window's inputs of one env step of the thin-goal env from states
+  `st` under the 12-joint command act12."""
+  boxes = env._pruned_boxes(st.terrain.boxes, st.robot.phys.pos[:, :2])
+  fb = st.dyn.lateral_friction
+  return (env.model, st.robot, act12, st.dyn, boxes,
+          st.terrain.obstacle_spheres, fb * env.cfg.fric_coeff[0], fb,
+          env.cfg.num_action_repeat)
+
+
+def sphere_case(dev):
+  """The batch of tests/test_torch_kernel_cuda.py::test_kernel_matches_plain
+  [2], built the same way: 101 envs standing near a box and a sphere from
+  numpy seed 0, commands within 0.3 rad of the standing pose, 16
+  substeps.  Its env 96 parted from the plain version before the window
+  was built without FMA contraction (csrc/physics_window.cu header)."""
+  import numpy as np
+  import torch
+  from vision4leg_torch.physics import engine
+  from vision4leg_torch.robots import a1, a1_model
+  E = 101
+  rng = np.random.default_rng(0)
+  model = a1_model.build(dt=0.0025, device=dev)
+  t = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+  q0 = np.array([0, 0.9, -1.8] * 4, np.float32)
+  phys = engine.PhysState(
+      pos=t(np.c_[rng.uniform(-0.1, 0.1, (E, 2)), np.full(E, 0.27)]),
+      quat=t(np.tile([1.0, 0, 0, 0], (E, 1))),
+      joint_q=t(q0 + rng.uniform(-0.1, 0.1, (E, 12))),
+      ang=t(rng.normal(0, 0.2, (E, 3))), lin=t(rng.normal(0, 0.2, (E, 3))),
+      joint_qd=t(rng.normal(0, 0.5, (E, 12))))
+  dyn = a1.DynamicsParams(
+      kp=t(np.full((E, 12), 60.0)), kd=t(np.full((E, 12), 0.6)),
+      strength_ratios=t(rng.uniform(0.8, 1.2, (E, 12))),
+      motor_friction=t(rng.uniform(0, 0.05, E)),
+      joint_friction=t(rng.uniform(0, 0.05, E)),
+      control_latency=t(np.zeros(E)), lateral_friction=t(np.ones(E)),
+      mass_scale=t(rng.uniform(0.8, 1.2, (E, 13))),
+      inertia_scale=t(rng.uniform(0.5, 1.5, (E, 13))))
+  boxes = np.zeros((E, 8, 8), np.float32)
+  boxes[:, 0] = [0.15, 0.0, 0.05, 0.1, 0.1, 0.05, 0.3, 1.0]
+  spheres = np.zeros((E, 2, 5), np.float32)
+  spheres[:, 0] = [-0.18, 0.13, 0.0, 0.12, 1.0]
+  cmd = t(q0 + rng.uniform(-0.3, 0.3, (E, 12)))
+  return (model, a1.init_robot_state(phys), cmd, dyn, t(boxes), t(spheres),
+          t(np.ones(E)), t(np.ones(E)), 16)
 
 
 def make_rollout(env, meta, net, params):
@@ -269,6 +342,7 @@ def phase_layer(net, obs, card):
   inputs; returns its numbers for the kernels line."""
   import torch
   from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import nvcc
   dev = obs.device
   with torch.no_grad():
     tokens = net._tokens(obs)                        # (1024, 17, 64)
@@ -282,35 +356,68 @@ def phase_layer(net, obs, card):
   cases = {"tokens->pf_layers.0": (tokens, w0),
            "layer-1 out->pf_layers.1": (second, w1),
            "randn->pf_layers.0": (noise, w0)}
-  max_err = 0.0
+  max_err, bwd_err = 0.0, 0.0
   for name, (x_all, w) in cases.items():
     for B in LAYER_BATCHES:
       x = x_all[:B].contiguous()
       with torch.no_grad():
         got = att.fused_transformer_layer(x, w)
         ref = att.layer_math(x, w)
+        saved, res = att.fused_layer_forward_saved(x, w)
       torch.cuda.synchronize()
       err, ok = _close(got, ref, **LAYER_FWD_TOL)
       max_err = max(max_err, err)
-      # gradients of a weighted sum: kernel forward + recomputed backward
-      # against autograd of the plain version
+      if not torch.equal(saved, got):
+        raise AssertionError(f"the saving forward's output differs from "
+                             f"the inference forward's on {name} at B={B}")
       g = torch.randn(x.shape, generator=gen, device=dev)
-      grads = []
-      for fn in (att.fused_transformer_layer_ad, att.layer_math):
-        xi = x.clone().requires_grad_(True)
-        wi = att.LayerWeights(*[t.clone().requires_grad_(True) for t in w])
-        (fn(xi, wi) * g).sum().backward()
-        grads.append([xi.grad] + [t.grad for t in wi])
-      g_err, g_ok = 0.0, True
-      for a, b in zip(*grads):
+      # what the backward kernel writes against its plain version on the
+      # residuals the forward kernel wrote (the same ReLU mask on both
+      # sides): every row gradient and per-sample column sum
+      b_err, b_ok = 0.0, True
+      for a, b in zip(att.fused_layer_backward_rows(res, g, w),
+                      att.layer_backward_rows(res, g, w)):
         e, o = _close(a, b, **LAYER_GRAD_TOL)
-        g_err, g_ok = max(g_err, e), g_ok and o
+        b_err, b_ok = max(b_err, e), b_ok and o
+      bwd_err = max(bwd_err, b_err)
+      # end to end: gradients of a weighted sum through both kernels
+      # against autograd of the plain version (module docstring)
+      g_ok, rep = att.compare_grads_with_plain(x, w, g)
+      g_err = max(r["max_abs_err"] for r in rep.values())
+      excused = {k: r["excused"] for k, r in rep.items() if r["excused"]}
+      spread = max(r["f32_spread"] for r in rep.values())
+      # ReLU kinks: FFN pre-activations on the other side of zero in the
+      # kernel's forward than in the plain one
+      with torch.no_grad():
+        _, res_p = att.layer_forward_saved(x, w)
+        h_pre = res_p.y.reshape(-1, w.w1.shape[0]) @ w.w1 + w.b1
+      flips = (res.h.reshape(h_pre.shape) > 0) != (h_pre > 0)
       log(f"transformer_layer vs plain [{name}, B={B}]: forward max abs "
-          f"err {err:.3e}, gradient (x and 16 weights) max abs err "
-          f"{g_err:.3e}")
-      if not (ok and g_ok):
+          f"err {err:.3e} (saving mode: the same bits); backward kernel vs "
+          f"layer_backward_rows on the same residuals: max abs err "
+          f"{b_err:.3e}; end to end vs autograd of layer_math (x and 16 "
+          f"weights): max abs err {g_err:.3e}, largest plain float32 "
+          f"spread {spread:.3e}, elements within twice the spread only "
+          f"{excused or 0}, failed {sum(r['failed'] for r in rep.values())}"
+          f"; ReLU mask flips kernel vs plain forward "
+          f"{int(flips.sum())} at plain pre-activations "
+          f"{[f'{v:.2e}' for v in h_pre[flips].tolist()]}")
+      if not (ok and b_ok and g_ok):
         raise AssertionError(f"transformer_layer disagrees with plain on "
-                             f"{name} at B={B}")
+                             f"{name} at B={B}: {rep}")
+
+  # two backward calls on the same inputs give the same bits
+  x = tokens.clone().requires_grad_(True)
+  w = att.LayerWeights(*[t.clone().requires_grad_(True) for t in w0])
+  g = torch.randn(tokens.shape, generator=gen, device=dev)
+  runs = [torch.autograd.grad(att.fused_transformer_layer_ad(x, w), [x, *w],
+                              g) for _ in range(2)]
+  if not all(torch.equal(a, b) for a, b in zip(*runs)):
+    raise AssertionError("two backward calls gave different gradients")
+  log(f"fused_transformer_layer_ad at B={tokens.shape[0]}: two calls give "
+      f"bit-identical gradients (x and 16 weights)")
+  ptx = nvcc.ptxas_counts(nvcc.INFO["transformer_layer"]["log"])
+  log(f"transformer_layer_bwd ptxas: {json.dumps({k: v for k, v in ptx.items() if 'bwd' in k})}")
 
   # torch's own layer (eval, no_grad: its fused native path), same weights
   D, F = tokens.shape[-1], w0.w1.shape[1]
@@ -338,7 +445,8 @@ def phase_layer(net, obs, card):
   if not lib_ok:
     raise AssertionError("the library layer disagrees with the plain one")
 
-  before = att.fused_transformer_layer.launches
+  before = (att.fused_transformer_layer.launches,
+            att.fused_transformer_layer_bwd.launches)
   with torch.no_grad():
     k_ms = time_ms(lambda: att.fused_transformer_layer(tokens, w0))
     p_ms = time_ms(lambda: att.layer_math(tokens, w0), n=20)
@@ -356,7 +464,20 @@ def phase_layer(net, obs, card):
   lib.train()                  # dropout 0: the same function, autograd
   lib_ad_ms = time_ms(lambda: torch.autograd.grad(
       lib(xi), [xi, *lib.parameters()], g), n=20)
-  att.fused_transformer_layer.launches = before
+  ad_ms2 = time_ms(lambda: torch.autograd.grad(
+      att.fused_transformer_layer_ad(xi, wi), inputs, g), n=20)
+  # its parts: the saving forward, and the backward (kernel, weight
+  # products and sums) on one forward's residuals
+  with torch.no_grad():
+    save_ms = time_ms(lambda: att.fused_layer_forward_saved(tokens, w0))
+    _, res = att.fused_layer_forward_saved(tokens, w0)
+    bwd_ms = time_ms(lambda: att.fused_transformer_layer_bwd(res, g, w0))
+    bwd_k_ms = time_ms(lambda: att.fused_layer_backward_rows(res, g, w0))
+    bwd_plain_ms = time_ms(lambda: att.layer_backward_math(res, g, w0),
+                           n=20)
+  del res
+  att.fused_transformer_layer.launches, \
+      att.fused_transformer_layer_bwd.launches = before
   B, T, D = tokens.shape
   nbytes, flops = att.layer_cost(B, T, D, F)
   t_bytes, t_ops = nbytes / 3.35e12 * 1e3, flops / 67e12 * 1e3
@@ -367,16 +488,26 @@ def phase_layer(net, obs, card):
       f"ms (20 calls each); bound {bound_ms * 1e3:.3f} us ({nbytes} bytes -> "
       f"{t_bytes * 1e3:.3f} us, {flops} f32 FLOP -> {t_ops * 1e3:.3f} us)")
   g_bytes, g_flops = att.layer_grad_cost(B, T, D, F)
-  g_bound = max(g_bytes / 3.35e12, g_flops / 67e12) * 1e3
+  gt_bytes, gt_ops = g_bytes / 3.35e12 * 1e3, g_flops / 67e12 * 1e3
+  g_bound = max(gt_bytes, gt_ops)
   log(f"fused_transformer_layer_ad forward + backward at B={B} on {card}: "
-      f"{ad_ms:.4f} ms (kernel forward, plain recompute backward), plain "
-      f"autograd {plain_ad_ms:.4f} ms, torch.nn.TransformerEncoderLayer "
-      f"autograd {lib_ad_ms:.4f} ms (20 calls each); bound "
-      f"{g_bound * 1e3:.3f} us ({g_bytes} bytes, {g_flops} f32 FLOP)")
-  return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
-              bound_ms=bound_ms,
-              bound_by="operations" if t_ops >= t_bytes else "bytes",
-              library_ms=l_ms)
+      f"{ad_ms:.4f} ms / {ad_ms2:.4f} ms (saving forward kernel + backward "
+      f"kernel + weight products, two turns), plain autograd "
+      f"{plain_ad_ms:.4f} ms, torch.nn.TransformerEncoderLayer autograd "
+      f"{lib_ad_ms:.4f} ms (20 calls each); bound {g_bound * 1e3:.3f} us "
+      f"({g_bytes} bytes -> {gt_bytes * 1e3:.3f} us, {g_flops} f32 FLOP -> "
+      f"{gt_ops * 1e3:.3f} us); parts: saving forward {save_ms:.4f} ms, "
+      f"backward {bwd_ms:.4f} ms (of which the backward kernel with its "
+      f"weight transposes {bwd_k_ms:.4f} ms; the plain version "
+      f"layer_backward_math {bwd_plain_ms:.4f} ms)")
+  fwd = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             library_ms=l_ms)
+  bwd = dict(max_abs_err=bwd_err, ms=ad_ms, plain_ms=plain_ad_ms,
+             bound_ms=g_bound,
+             bound_by="operations" if gt_ops >= gt_bytes else "bytes",
+             library_ms=lib_ad_ms)
+  return fwd, bwd
 
 
 def phase_training(env, meta, params, card):
@@ -415,21 +546,26 @@ def phase_training(env, meta, params, card):
     init = {k: v.clone() for k, v in a.module.state_dict().items()}
     pk.robot_window.launches = 0
     att.fused_transformer_layer.launches = 0
+    att.fused_transformer_layer_bwd.launches = 0
     t = time.perf_counter()
     a.train()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     launches = {"physics_window": pk.robot_window.launches,
-                "transformer_layer": att.fused_transformer_layer.launches}
+                "transformer_layer": att.fused_transformer_layer.launches,
+                "transformer_layer_bwd":
+                    att.fused_transformer_layer_bwd.launches}
     horizon = a.horizon
     n_mb = cfg.opt_epochs * (cfg.epoch_frames // cfg.batch_size)
     per_epoch_layer = (4 * horizon + 2 + 4 * n_mb) + 2 * EVAL_HORIZON
     want = {"physics_window": TRAIN_EPOCHS * (horizon + EVAL_HORIZON),
-            "transformer_layer": TRAIN_EPOCHS * per_epoch_layer}
+            "transformer_layer": TRAIN_EPOCHS * per_epoch_layer,
+            "transformer_layer_bwd": TRAIN_EPOCHS * 4 * n_mb}
     log(f"trained {TRAIN_EPOCHS} epochs in {dt:.2f}s; launches {launches}, "
         f"expected {want} (per epoch: window {horizon} + {EVAL_HORIZON} "
         f"eval; layer 4 x {horizon} pi_v + 2 last value + 4 x {n_mb} "
-        f"update at B={NUM_ENVS}, 2 x {EVAL_HORIZON} eval at B={n_eval})")
+        f"update at B={NUM_ENVS} (saving mode), 2 x {EVAL_HORIZON} eval at "
+        f"B={n_eval}; layer backward 4 x {n_mb} update)")
     if launches != want:
       raise AssertionError(f"launch counts {launches} != {want}")
 
@@ -770,19 +906,13 @@ def main() -> int:
   torch.cuda.synchronize()
   log("reset + 3 steps at 1024 envs for the kernel's input states")
 
-  def window_inputs(st, act12):
-    boxes = env._pruned_boxes(st.terrain.boxes, st.robot.phys.pos[:, :2])
-    fb = st.dyn.lateral_friction
-    return (env.model, st.robot, act12, st.dyn, boxes,
-            st.terrain.obstacle_spheres, fb * env.cfg.fric_coeff[0], fb,
-            env.cfg.num_action_repeat)
-
   act12 = env._expand_action(
       low + (high - low) * torch.rand(num_envs, 6, generator=gen, device=dev))
-  cases = {"rollout": window_inputs(states, act12)}
+  cases = {"rollout": rollout_window_inputs(env, states, act12)}
   (_, rs, cmd, dyn, _, _, _, _, n_sub) = cases["rollout"]
   cases["contact"] = contact_case(env.model, env.settled_template(),
                                   rs.phys.pos[:, :2], cmd, dyn, n_sub)
+  cases["sphere test case"] = sphere_case(dev)
 
   max_err = 0.0
   for name, args in cases.items():
@@ -821,6 +951,7 @@ def main() -> int:
   log(f"init_collector at {num_envs} envs: {time.perf_counter() - t:.2f}s")
   pk.robot_window.launches = 0
   att.fused_transformer_layer.launches = 0
+  att.fused_transformer_layer_bwd.launches = 0
   t = time.perf_counter()
   cs, traj, last_v = rollout(cs)
   torch.cuda.synchronize()
@@ -831,7 +962,8 @@ def main() -> int:
       f"(first rollout of the process); physics_window launches "
       f"{launches}, transformer_layer launches "
       f"{att.fused_transformer_layer.launches} (fused layer off)")
-  if launches != horizon or att.fused_transformer_layer.launches != 0:
+  if (launches != horizon or att.fused_transformer_layer.launches != 0
+      or att.fused_transformer_layer_bwd.launches != 0):
     raise AssertionError(
         f"a {horizon}-step rollout launched physics_window {launches} "
         f"times and transformer_layer "
@@ -855,7 +987,7 @@ def main() -> int:
       f"{float(traj.rewards.mean()):.4f}")
 
   # --- 5. the transformer-layer kernel against its plain version --------
-  layer = phase_layer(net, traj.obs[0], card)
+  layer, layer_bwd = phase_layer(net, traj.obs[0], card)
   tf32_obs = traj.obs[0].clone()
   del cs, traj, last_v
   torch.cuda.empty_cache()
@@ -894,6 +1026,10 @@ def main() -> int:
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
       replaces="vision4leg_tpu/ops/attention.py:116",
       launches=launches["transformer_layer"], **layer), dict(
+      name="transformer_layer_bwd", route="cuda",
+      source="vision4leg_torch/ops/csrc/transformer_layer.cu",
+      replaces="vision4leg_tpu/ops/attention.py:149 (_ad_bwd :178)",
+      launches=launches["transformer_layer_bwd"], **layer_bwd), dict(
       name="physics_window_hybrid", route="cuda",
       source="vision4leg_torch/ops/csrc/physics_window.cu",
       replaces="vision4leg_tpu/ops/physics_kernel.py:122 (hybrid mode, "

@@ -2,7 +2,9 @@
 version, on the card (skipped without one: run
 `python -m pytest --noconftest tests/test_torch_attention_cuda.py` on the
 card).  Tolerances of tests/test_pallas.py: forward atol 2e-5 / rtol
-1e-4, gradients atol 3e-5 / rtol 1e-4; TF32 off."""
+1e-4, gradients atol 3e-5 / rtol 1e-4; TF32 off.  What the backward
+kernel writes is held against `layer_backward_rows` on the residuals the
+forward kernel wrote, so that both take the ReLU mask from the same h."""
 import numpy as np
 import pytest
 import torch
@@ -53,18 +55,18 @@ def test_kernel_matches_plain(cuda, B, T, D, F):
 
 @pytest.mark.cuda
 def test_kernel_gradient_matches_plain(cuda):
+  """End to end through both kernels, against autograd of the plain
+  layer by `attention.compare_grads_with_plain`: within atol 3e-5 / rtol
+  1e-4 of the float32 autograd, or within twice the plain layer's own
+  float32 spread of the float64 autograd (a weight gradient sums 17,000
+  products here)."""
   w = _weights(64, 256, cuda)
   x = torch.randn(1000, 17, 64, device=cuda)
   g = torch.randn_like(x)
-  xa = x.clone().requires_grad_(True)
-  wa = att.LayerWeights(*[t.clone().requires_grad_(True) for t in w])
-  (att.fused_transformer_layer_ad(xa, wa) * g).sum().backward()
-  xp = x.clone().requires_grad_(True)
-  wp = att.LayerWeights(*[t.clone().requires_grad_(True) for t in w])
-  (att.layer_math(xp, wp) * g).sum().backward()
-  torch.testing.assert_close(xa.grad, xp.grad, atol=3e-5, rtol=1e-4)
-  for a, b in zip(wa, wp):
-    torch.testing.assert_close(a.grad, b.grad, atol=3e-5, rtol=1e-4)
+  before = att.fused_transformer_layer_bwd.launches
+  ok, report = att.compare_grads_with_plain(x, w, g)
+  assert att.fused_transformer_layer_bwd.launches == before + 1
+  assert ok, report
 
 
 @pytest.mark.cuda
@@ -78,3 +80,63 @@ def test_kernel_rejects_bad_inputs(cuda):
   with pytest.raises(ValueError, match="x on"):
     att.fused_transformer_layer(torch.zeros(2, 17, 64, device=cuda),
                                 w._replace(wq=w.wq.cpu()))
+
+
+BWD_SHAPES = [(1024, 17, 64, 256), (1000, 17, 64, 256), (8, 17, 64, 256),
+              (1, 17, 64, 256), (5, 32, 128, 512), (3, 7, 24, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,F", BWD_SHAPES)
+def test_backward_kernel_matches_plain(cuda, B, T, D, F):
+  w = _weights(D, F, cuda, seed=B + 1)
+  gen = torch.Generator(device=cuda).manual_seed(B + 1)
+  x = torch.randn(B, T, D, device=cuda, generator=gen)
+  g = torch.randn(B, T, D, device=cuda, generator=gen)
+  before = (att.fused_transformer_layer.launches,
+            att.fused_transformer_layer_bwd.launches)
+  out, res = att.fused_layer_forward_saved(x, w)
+  got = att.fused_transformer_layer_bwd(res, g, w)
+  torch.cuda.synchronize()
+  assert (att.fused_transformer_layer.launches,
+          att.fused_transformer_layer_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+  rows = att.fused_layer_backward_rows(res, g, w)
+  # the saving mode leaves the inference output as it was, bit for bit
+  assert torch.equal(out, att.fused_transformer_layer(x, w))
+  ref_out, ref_res = att.layer_forward_saved(x, w)
+  torch.testing.assert_close(out, ref_out, atol=2e-5, rtol=1e-4)
+  for name, a, b in zip(att.Residuals._fields, res, ref_res):
+    torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-4, msg=name)
+  want = att.layer_backward_rows(res, g, w)
+  for name, a, b in zip(att.BackwardRows._fields, rows, want):
+    torch.testing.assert_close(a, b, atol=3e-5, rtol=1e-4, msg=name)
+  grads = att.weight_grads(res, rows)
+  assert all(torch.equal(a, b) for a, b in zip(got, grads))
+
+
+@pytest.mark.cuda
+def test_backward_kernel_is_deterministic(cuda):
+  w = _weights(64, 256, cuda, seed=5)
+  gen = torch.Generator(device=cuda).manual_seed(5)
+  x = torch.randn(1024, 17, 64, device=cuda, generator=gen)
+  g = torch.randn(1024, 17, 64, device=cuda, generator=gen)
+  grads = []
+  for _ in range(2):
+    xi = x.clone().requires_grad_(True)
+    wi = att.LayerWeights(*[t.clone().requires_grad_(True) for t in w])
+    grads.append(torch.autograd.grad(att.fused_transformer_layer_ad(xi, wi),
+                                     [xi, *wi], g))
+  assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
+def test_backward_rejects_bad_inputs(cuda):
+  w = _weights(64, 256, cuda)
+  x = torch.randn(4, 17, 64, device=cuda)
+  _, res = att.fused_layer_forward_saved(x, w)
+  with pytest.raises(ValueError, match="g must be"):
+    att.fused_transformer_layer_bwd(res, torch.zeros(4, 17, 64), w)
+  with pytest.raises(ValueError, match="residual"):
+    att.fused_transformer_layer_bwd(res._replace(p=res.p.clone()),
+                                    torch.zeros_like(x), w)

@@ -44,14 +44,14 @@ extern "C" int transformer_layer_launch(
     const void* bk, const void* wv, const void* bv, const void* wo,
     const void* bo, const void* ln1s, const void* ln1b, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* ln2s,
-    const void* ln2b, int B, int T, int D, int F) {
+    const void* ln2b, int B, int T, int D, int F, void* res) {
   LayerArgs a{(const float*)x, (float*)out, (const float*)wq,
               (const float*)bq, (const float*)wk, (const float*)bk,
               (const float*)wv, (const float*)bv, (const float*)wo,
               (const float*)bo, (const float*)ln1s, (const float*)ln1b,
               (const float*)w1, (const float*)b1, (const float*)w2,
               (const float*)b2, (const float*)ln2s, (const float*)ln2b,
-              T, D, F};
+              T, D, F, (float*)res, B};
   // garbage in the shared memory, as on the card
   std::vector<float> smem(tl_smem_floats(T, D, F), NAN);
   for (int b = 0; b < B; ++b)
@@ -60,18 +60,35 @@ extern "C" int transformer_layer_launch(
         tl_phase(ph, a, smem.data(), b, tid, TL_THREADS);
   return 0;
 }
+
+extern "C" int transformer_layer_bwd_launch(
+    const void* g, void* res, const void* wqt, const void* wkt,
+    const void* wvt, const void* wot, const void* w1t, const void* w2t,
+    const void* ln1s, const void* ln2s, void* dx, void* dqkv, void* dr1,
+    void* dh, void* dz2, void* part, int B, int T, int D, int F) {
+  BwdArgs a{(const float*)g, (float*)res, (const float*)wqt,
+            (const float*)wkt, (const float*)wvt, (const float*)wot,
+            (const float*)w1t, (const float*)w2t, (const float*)ln1s,
+            (const float*)ln2s, (float*)dx, (float*)dqkv, (float*)dr1,
+            (float*)dh, (float*)dz2, (float*)part, B, T, D, F};
+  std::vector<float> smem(tlb_smem_floats(T, D, F), NAN);
+  for (int b = 0; b < B; ++b)
+    for (int ph = 0; ph < TLB_NUM_PHASES; ++ph)
+      for (int tid = 0; tid < TL_THREADS; ++tid)
+        tlb_phase(ph, a, smem.data(), b, tid, TL_THREADS);
+  return 0;
+}
 """
 
 
-@pytest.fixture(scope="module")
-def host_launch(tmp_path_factory):
+def build_host(d, src):
+  """Compile kernel source text `src` for the host in directory d; returns
+  the library (both launches: forward, then backward, as the CUDA launches
+  take them without the stream)."""
   gxx = shutil.which("g++")
   if gxx is None:
     pytest.skip("needs g++ to build the kernel source for the host")
-  d = tmp_path_factory.mktemp("host_layer")
   (d / "cuda_runtime.h").write_text(_HOST_HEADER)
-  with open(nvcc.SOURCES["transformer_layer"]) as f:
-    src = f.read()
   (d / "kernel.cpp").write_text(src + _HOST_LAUNCH)
   so = d / "kernel.so"
   proc = subprocess.run(
@@ -80,10 +97,22 @@ def host_launch(tmp_path_factory):
        str(d / "kernel.cpp")], capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr
   assert "warning" not in proc.stderr, proc.stderr
-  fn = ctypes.CDLL(str(so)).transformer_layer_launch
-  fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
-  fn.restype = ctypes.c_int
-  return fn
+  lib = ctypes.CDLL(str(so))
+  lib.transformer_layer_launch.argtypes = [ctypes.c_void_p] * 18 + [
+      ctypes.c_int] * 4 + [ctypes.c_void_p]
+  lib.transformer_layer_bwd_launch.argtypes = [ctypes.c_void_p] * 16 + [
+      ctypes.c_int] * 4
+  for fn in (lib.transformer_layer_launch, lib.transformer_layer_bwd_launch):
+    fn.restype = ctypes.c_int
+  return lib
+
+
+@pytest.fixture(scope="module")
+def host_launch(tmp_path_factory):
+  with open(nvcc.SOURCES["transformer_layer"]) as f:
+    src = f.read()
+  return build_host(tmp_path_factory.mktemp("host_layer"),
+                    src).transformer_layer_launch
 
 
 def _weights(rng, D, F):

@@ -20,8 +20,10 @@ a PPOAgent built as chip_smoke.py's training phase builds it (1024 envs,
 full width, fused layer on in collection and update, torch's default
 TF32 settings: matmul off, cuDNN convolutions on) trains one epoch to
 warm up, then one more with the update under the profiler, with spans
-on the value and policy forwards, the fused layer's launch and its
-recomputed backward, and the two Adam steps.
+on the value and policy forwards, the fused layer's launch (its
+residual-saving forward), its backward (the backward kernel, the weight
+products and sums) and the backward kernel's launch within it, and the
+two Adam steps.
 
 With --mpc it profiles the MPC collection path instead (chip_smoke.py's
 phase 9: config/mpc/locotransformer/thin-goal.json, 1024 envs, an 8-step
@@ -144,12 +146,14 @@ def train(card) -> int:
 
     learner = agent.learner
     spans = ("value forward", "policy forward", "layer kernel",
-             "layer backward", "vf adam", "pf adam")
+             "layer backward", "layer backward kernel", "vf adam",
+             "pf adam")
     learner.apply_v = span("value forward", learner.apply_v)
     learner.apply_pi = span("policy forward", learner.apply_pi)
     att._launch = span("layer kernel", att._launch)
     att._FusedLayerAD.backward = staticmethod(
         span("layer backward", att._FusedLayerAD.backward))
+    att._launch_bwd = span("layer backward kernel", att._launch_bwd)
     learner.vf_tx.update = span("vf adam", learner.vf_tx.update)
     learner.pf_tx.update = span("pf adam", learner.pf_tx.update)
     cs, traj, last_value = agent.rollout(agent.collector_state)

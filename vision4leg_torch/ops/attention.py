@@ -5,22 +5,30 @@ vision4leg_tpu.ops.attention).
 `fused_transformer_layer(x, w)` launches the hand-written kernel on CUDA
 tensors or raises; on CPU tensors it runs the plain PyTorch version
 `layer_math` (the same math as the JAX package's `_layer_math`).
-`fused_transformer_layer_ad` makes it differentiable as the JAX package
-does: the forward is the kernel, the backward recomputes `layer_math`
-under autograd (the JAX package has no backward kernel either).  The
-kernel is built with nvcc at first use (`ops/nvcc.py`).
+`fused_transformer_layer_ad` makes it differentiable, with the gradient
+of the JAX package's `_ad_bwd`: on CUDA tensors its forward is the same
+kernel writing the residuals of the layer to device memory
+(`fused_layer_forward_saved`), and its backward a second kernel of the
+same source that computes the row gradients from them
+(`fused_transformer_layer_bwd`), the weight gradients being large plain
+matrix products left to torch.matmul.  On CPU tensors the two are their
+plain versions, `layer_forward_saved` and `layer_backward_math` (the
+hand-derived backward written with torch ops).  The kernels are built
+with nvcc at first use (`ops/nvcc.py`).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Tuple
 
 import torch
 
 from vision4leg_torch.ops import nvcc
 
-# shapes the kernel takes: one sample's layer in shared memory, at most
-# 136 KB here (csrc tl_smem_floats), within the 227 KB a block may use
+# shapes the kernels take: one sample's layer in shared memory, at most
+# 136 KB forward and 174 KB backward here (csrc tl_smem_floats,
+# tlb_smem_floats), within the 227 KB a block may use
 MAX_T, MAX_D, MAX_F = 32, 128, 512
 
 
@@ -44,17 +52,42 @@ class LayerWeights(NamedTuple):
   ln2_bias: torch.Tensor
 
 
-def layer_norm(x, scale, bias, eps: float = 1e-6):
-  """Mean first, then the mean of the squared deviations (attention.py
-  `_layer_norm`)."""
-  mu = torch.mean(x, dim=-1, keepdim=True)
-  var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
-  return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+class Residuals(NamedTuple):
+  """What the backward needs of one forward: the input and the layer's
+  intermediates.  On the card the fields after x are views of one buffer,
+  in this order, as the kernel writes them (csrc R_* and tl_res)."""
+  x: torch.Tensor       # (B, T, D) the layer's input
+  q: torch.Tensor       # (B, T, D)
+  k: torch.Tensor
+  v: torch.Tensor
+  ctx: torch.Tensor     # softmax(q k^T / sqrt(D)) v
+  xhat1: torch.Tensor   # LN1's normalized x + ctx Wo + bo
+  y: torch.Tensor       # LN1's output
+  xhat2: torch.Tensor   # LN2's normalized y + h W2 + b2
+  h: torch.Tensor       # (B, T, F) relu(y W1 + b1); h > 0 is the mask
+  p: torch.Tensor       # (B, T, T) the softmax
+  rstd1: torch.Tensor   # (B, T) LN1's 1 / sqrt(var + eps)
+  rstd2: torch.Tensor
 
 
-def layer_math(x, w: LayerWeights):
-  """The plain version: (B, T, D) -> (B, T, D), the math of the JAX
-  package's `_layer_math`."""
+def residual_shapes(B: int, T: int, D: int, F: int):
+  """Shapes of the residual fields after x, in the buffer's order."""
+  return [(B, T, D)] * 7 + [(B, T, F), (B, T, T), (B, T), (B, T)]
+
+
+def _normalize(z, eps: float = 1e-6):
+  """LayerNorm before its scale and bias, the mean first and then the mean
+  of the squared deviations (attention.py `_layer_norm`): (x̂, 1 /
+  sqrt(var + eps)) of each row."""
+  mu = torch.mean(z, dim=-1, keepdim=True)
+  rstd = torch.rsqrt(torch.mean((z - mu) ** 2, dim=-1, keepdim=True) + eps)
+  return (z - mu) * rstd, rstd[..., 0]
+
+
+def layer_forward_saved(x, w: LayerWeights):
+  """The plain version of the layer's forward with its residuals: (out,
+  Residuals) for x (B, T, D), the math of the JAX package's
+  `_layer_math`."""
   B, T, D = x.shape
   flat = x.reshape(B * T, D)
   q = (flat @ w.wq + w.bq).reshape(B, T, D)
@@ -64,10 +97,85 @@ def layer_math(x, w: LayerWeights):
   attn = torch.softmax(scores, dim=-1)
   ctx = torch.bmm(attn, v)
   out = (ctx.reshape(B * T, D) @ w.wo + w.bo).reshape(B, T, D)
-  y = layer_norm(x + out, w.ln1_scale, w.ln1_bias)
+  xhat1, rstd1 = _normalize(x + out)
+  y = xhat1 * w.ln1_scale + w.ln1_bias
   h = torch.relu(y.reshape(B * T, D) @ w.w1 + w.b1)
   f = (h @ w.w2 + w.b2).reshape(B, T, D)
-  return layer_norm(y + f, w.ln2_scale, w.ln2_bias)
+  xhat2, rstd2 = _normalize(y + f)
+  return xhat2 * w.ln2_scale + w.ln2_bias, Residuals(
+      x=x, q=q, k=k, v=v, ctx=ctx, xhat1=xhat1, y=y, xhat2=xhat2,
+      h=h.reshape(B, T, -1), p=attn, rstd1=rstd1, rstd2=rstd2)
+
+
+def layer_math(x, w: LayerWeights):
+  """The plain version: (B, T, D) -> (B, T, D), the math of the JAX
+  package's `_layer_math`."""
+  return layer_forward_saved(x, w)[0]
+
+
+def _ln_backward(d, xhat, rstd, scale):
+  """Gradient of LayerNorm's input from that of its output d."""
+  ds = d * scale
+  return rstd[..., None] * (ds - ds.mean(-1, keepdim=True)
+                            - xhat * (ds * xhat).mean(-1, keepdim=True))
+
+
+class BackwardRows(NamedTuple):
+  """What the backward kernel computes: the gradients of the layer's rows
+  and, per sample, the column sums over its T rows that the bias and
+  LayerNorm gradients need."""
+  dx: torch.Tensor      # (B, T, D)
+  dqkv: torch.Tensor    # (B, T, 3 D): dq | dk | dv
+  dr1: torch.Tensor     # (B, T, D) gradient of x + ctx Wo + bo
+  dh: torch.Tensor      # (B, T, F) gradient of y W1 + b1
+  dz2: torch.Tensor     # (B, T, D) gradient of y + h W2 + b2
+  sums: torch.Tensor    # (B, 9 D + F): bq bk bv bo ln1s ln1b b1 b2 ln2s ln2b
+
+
+def layer_backward_rows(res: Residuals, g, w: LayerWeights) -> BackwardRows:
+  """The plain version of the backward kernel: BackwardRows of
+  sum(layer_math(x, w) * g) from one forward's residuals, by the
+  hand-derived formulas the kernel computes (csrc tlb_phase)."""
+  D = g.shape[-1]
+  dz2 = _ln_backward(g, res.xhat2, res.rstd2, w.ln2_scale)
+  dh = (dz2 @ w.w2.t()) * (res.h > 0)
+  dy = dz2 + dh @ w.w1.t()
+  dr1 = _ln_backward(dy, res.xhat1, res.rstd1, w.ln1_scale)
+  dctx = dr1 @ w.wo.t()
+  dp = dctx @ res.v.transpose(1, 2)
+  dv = res.p.transpose(1, 2) @ dctx
+  ds = res.p * (dp - (dp * res.p).sum(-1, keepdim=True)) / (D ** 0.5)
+  dq = ds @ res.k
+  dk = ds.transpose(1, 2) @ res.q
+  dx = dr1 + dq @ w.wq.t() + dk @ w.wk.t() + dv @ w.wv.t()
+  sums = torch.cat([t.sum(1) for t in (
+      dq, dk, dv, dr1, dy * res.xhat1, dy, dh, dz2, g * res.xhat2, g)], -1)
+  return BackwardRows(dx=dx, dqkv=torch.cat([dq, dk, dv], -1), dr1=dr1,
+                      dh=dh, dz2=dz2, sums=sums)
+
+
+def weight_grads(res: Residuals, rows: BackwardRows):
+  """(dx, *dw) in LayerWeights' order from the backward's rows: the
+  weight gradients as products over all B * T rows (x^T dq, ..., h^T dz2),
+  the bias and LayerNorm gradients as one sum of the per-sample sums
+  over the samples; no float atomics."""
+  B, T, D = res.x.shape
+  F = res.h.shape[-1]
+  flat = lambda t: t.reshape(B * T, -1)
+  dwq, dwk, dwv = (flat(res.x).t() @ flat(rows.dqkv)).split(D, dim=1)
+  dwo = flat(res.ctx).t() @ flat(rows.dr1)
+  dw1 = flat(res.y).t() @ flat(rows.dh)
+  dw2 = flat(res.h).t() @ flat(rows.dz2)
+  (dbq, dbk, dbv, dbo, dln1s, dln1b, db1, db2, dln2s,
+   dln2b) = rows.sums.sum(0).split([D] * 6 + [F] + [D] * 3)
+  return (rows.dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dln1s, dln1b,
+          dw1, db1, dw2, db2, dln2s, dln2b)
+
+
+def layer_backward_math(res: Residuals, g, w: LayerWeights):
+  """The plain version of the whole backward: the gradients (dx, *dw) of
+  sum(layer_math(x, w) * g) from one forward's residuals."""
+  return weight_grads(res, layer_backward_rows(res, g, w))
 
 
 def layer_cost(B: int, T: int, D: int, F: int) -> Tuple[int, int]:
@@ -94,11 +202,15 @@ _LIB = {}
 
 
 def build_library() -> ctypes.CDLL:
-  """Compile the kernel (once per source+flags hash) and load it."""
+  """Compile the kernels (once per source+flags hash) and load them."""
   if "lib" not in _LIB:
     lib = nvcc.load("transformer_layer")
     fn = lib.transformer_layer_launch
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    fn = lib.transformer_layer_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _LIB["lib"] = lib
@@ -136,21 +248,29 @@ def check_inputs(x, w: LayerWeights) -> Tuple[int, int, int, int]:
   return B, T, D, F
 
 
-def _launch(x, w: LayerWeights, launch=None):
-  """Check, allocate the output and launch; `launch(*pointers_and_sizes)`
-  defaults to the built kernel on the current CUDA stream."""
+def _launch(x, w: LayerWeights, launch=None, save: bool = False):
+  """Check, allocate the output (and, with `save`, the residuals) and
+  launch; `launch(*pointers_and_sizes)` defaults to the built kernel on
+  the current CUDA stream.  Returns out, or (out, Residuals) with save."""
   B, T, D, F = check_inputs(x, w)
   if launch is None:
     fn = build_library().transformer_layer_launch
     stream = torch.cuda.current_stream(x.device).cuda_stream
     launch = lambda *args: fn(*args, stream)
   out = torch.empty_like(x)
+  res = None
+  if save:
+    shapes = residual_shapes(B, T, D, F)
+    buf = torch.empty(sum(math.prod(s) for s in shapes),
+                      dtype=torch.float32, device=x.device)
+    res = Residuals(x, *[part.view(s) for part, s in zip(
+        buf.split([math.prod(s) for s in shapes]), shapes)])
   err = launch(x.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in w],
-               B, T, D, F)
+               B, T, D, F, None if res is None else res.q.data_ptr())
   if err != 0:
     raise RuntimeError(f"transformer_layer_launch failed: cudaError {err}")
   fused_transformer_layer.launches += 1
-  return out
+  return out if res is None else (out, res)
 
 
 def fused_transformer_layer(x, w: LayerWeights):
@@ -166,27 +286,174 @@ def fused_transformer_layer(x, w: LayerWeights):
 fused_transformer_layer.launches = 0
 
 
+def fused_layer_forward_saved(x, w: LayerWeights):
+  """The layer's forward with its residuals: (out, Residuals).  CUDA
+  tensors: the kernel in its saving mode (or an error); CPU tensors:
+  `layer_forward_saved`."""
+  if x.device.type == "cuda":
+    return _launch(x, w, save=True)
+  if x.device.type != "cpu":
+    raise ValueError(f"transformer_layer: unsupported device {x.device}")
+  return layer_forward_saved(x, w)
+
+
+def check_grad_inputs(res: Residuals, g, w: LayerWeights):
+  """Raise on what the backward kernel does not take; returns (B, T, D,
+  F).  The residuals must be the saving forward's: views of one buffer at
+  the kernel's offsets."""
+  B, T, D, F = check_inputs(res.x, w)
+  if g.shape != res.x.shape or g.dtype != torch.float32 or \
+     g.device != res.x.device or not g.is_contiguous():
+    raise ValueError(f"transformer_layer_bwd: g must be a contiguous "
+                     f"float32 {tuple(res.x.shape)} tensor on "
+                     f"{res.x.device}, got {g.dtype} {tuple(g.shape)} on "
+                     f"{g.device}")
+  base, off = res.q.data_ptr(), 0
+  for name, t, s in zip(Residuals._fields[1:], res[1:],
+                        residual_shapes(B, T, D, F)):
+    if (tuple(t.shape) != s or t.dtype != torch.float32
+        or t.device != g.device or not t.is_contiguous()
+        or t.data_ptr() != base + 4 * off):
+      raise ValueError(f"transformer_layer_bwd: residual {name} is not "
+                       f"the saving forward's")
+    off += math.prod(s)
+  return B, T, D, F
+
+
+def _launch_bwd(res: Residuals, g, w: LayerWeights,
+                launch=None) -> BackwardRows:
+  """Check, allocate and launch the backward kernel; returns what it
+  wrote.  `launch` as in `_launch`."""
+  B, T, D, F = check_grad_inputs(res, g, w)
+  if launch is None:
+    fn = build_library().transformer_layer_bwd_launch
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    launch = lambda *args: fn(*args, stream)
+  # (out, in) row-major: the transposed products read rows of these
+  wt = [t.t().contiguous() for t in (w.wq, w.wk, w.wv, w.wo, w.w1, w.w2)]
+  new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                    device=g.device)
+  rows = BackwardRows(dx=new(B, T, D), dqkv=new(B, T, 3 * D),
+                      dr1=new(B, T, D), dh=new(B, T, F), dz2=new(B, T, D),
+                      sums=new(B, 9 * D + F))
+  err = launch(g.data_ptr(), res.q.data_ptr(), *[t.data_ptr() for t in wt],
+               w.ln1_scale.data_ptr(), w.ln2_scale.data_ptr(),
+               *[t.data_ptr() for t in rows], B, T, D, F)
+  if err != 0:
+    raise RuntimeError(f"transformer_layer_bwd_launch failed: cudaError "
+                       f"{err}")
+  fused_transformer_layer_bwd.launches += 1
+  return rows
+
+
+def fused_layer_backward_rows(res: Residuals, g,
+                              w: LayerWeights) -> BackwardRows:
+  """The backward's rows from the residuals of `fused_layer_forward_saved`:
+  CUDA tensors: the backward kernel (or an error); CPU tensors:
+  `layer_backward_rows`."""
+  dev = res.x.device
+  if dev.type == "cuda":
+    return _launch_bwd(res, g, w)
+  if dev.type != "cpu":
+    raise ValueError(f"transformer_layer_bwd: unsupported device {dev}")
+  return layer_backward_rows(res, g, w)
+
+
+def fused_transformer_layer_bwd(res: Residuals, g, w: LayerWeights):
+  """Gradients (dx, *dw) of sum(out * g) from the residuals of
+  `fused_layer_forward_saved`: `weight_grads` of
+  `fused_layer_backward_rows`."""
+  return weight_grads(res, fused_layer_backward_rows(res, g, w))
+
+
+fused_transformer_layer_bwd.launches = 0
+
+
 class _FusedLayerAD(torch.autograd.Function):
-  """Forward: the fused layer; backward: autograd of `layer_math`
-  recomputed from the saved (x, w), as the JAX package's `_ad_bwd`."""
+  """Forward: the layer, saving its residuals; backward:
+  `fused_transformer_layer_bwd` on them (the gradient of the JAX
+  package's `_ad_bwd`, with nothing recomputed)."""
 
   @staticmethod
   def forward(ctx, x, *w):
-    ctx.save_for_backward(x, *w)
-    return fused_transformer_layer(x, LayerWeights(*w))
+    out, res = fused_layer_forward_saved(x, LayerWeights(*w))
+    ctx.save_for_backward(*res, *w)
+    return out
 
   @staticmethod
   def backward(ctx, g):
     saved = ctx.saved_tensors
-    inputs = [t.detach().requires_grad_(True) for t in saved]
-    with torch.enable_grad():
-      out = layer_math(inputs[0], LayerWeights(*inputs[1:]))
-      return torch.autograd.grad(out, inputs, g)
+    n = len(Residuals._fields)
+    return fused_transformer_layer_bwd(
+        Residuals(*saved[:n]), g.contiguous(), LayerWeights(*saved[n:]))
 
 
 def fused_transformer_layer_ad(x, w: LayerWeights):
-  """Differentiable fused layer: kernel forward, plain-math backward."""
-  return _FusedLayerAD.apply(x, *w)
+  """Differentiable fused layer: where a gradient is needed, the kernel
+  forward saving residuals and the backward kernel on them; elsewhere
+  (no_grad: collection, bootstraps, eval) the inference forward."""
+  if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *w)):
+    return _FusedLayerAD.apply(x, *w)
+  return fused_transformer_layer(x, w)
+
+
+# tests/test_pallas.py's tolerance for the JAX fused layer's gradients
+GRAD_TOL = dict(atol=3e-5, rtol=1e-4)
+ROUNDING_SAMPLES = 8
+
+
+def _grads(fn, x, w, g):
+  """(dx, *dw) of sum(fn(x, w) * g) by autograd."""
+  inputs = [x.detach().clone().requires_grad_(True)] + [
+      t.detach().clone().requires_grad_(True) for t in w]
+  out = fn(inputs[0], LayerWeights(*inputs[1:]))
+  return torch.autograd.grad(out, inputs, g)
+
+
+def compare_grads_with_plain(x, w: LayerWeights, g, run=None):
+  """Hold the gradients (dx, *dw) of sum(run(x, w) * g) (default run:
+  `fused_transformer_layer_ad`) against autograd of `layer_math`.
+
+  Per gradient tensor and element: within GRAD_TOL (atol + rtol |ref|) of
+  the float32 autograd, or, where float32 itself cannot do better, within
+  twice the tensor's float32 spread of the float64 autograd.  The spread
+  s is the largest error of the plain layer's float32 autograd against
+  its float64 autograd over the tensor, on the inputs and on
+  ROUNDING_SAMPLES copies of x, w and g moved by one float32 rounding
+  unit (relative 2**-24) at random: the rule of
+  `physics_kernel.compare_with_plain`, per tensor where that one is per
+  env.  Float32 parts from float32 there for two reasons: a weight
+  gradient sums B * T products, so at B = 1024 two float32 computations
+  of it part by ~1e-4 wherever the sum cancels to less than ~1, while
+  their rows agree to ~1e-6; and an FFN pre-activation within ~1e-7 of
+  zero can take the other side of the ReLU in two float32 forwards,
+  which moves that sample's gradients, and every weight gradient, by
+  O(0.1-1).  The nudged copies of the plain layer flip such kinks too.
+  An element that passes only by the second term is counted as excused.
+  Returns (ok, report).
+  """
+  run = fused_transformer_layer_ad if run is None else run
+  got = _grads(run, x, w, g)
+  p32 = _grads(layer_math, x, w, g)
+  d = lambda t: t.double()
+  p64 = _grads(layer_math, d(x), LayerWeights(*map(d, w)), d(g))
+  gen = torch.Generator(device=x.device).manual_seed(0)
+  nudge = lambda t: t * (1 + (2 * torch.rand(
+      t.shape, generator=gen, device=t.device) - 1) * 2.0 ** -24)
+  nudged = [_grads(layer_math, nudge(x), LayerWeights(*map(nudge, w)),
+                   nudge(g)) for _ in range(ROUNDING_SAMPLES)]
+  ok, report = True, {}
+  for i, name in enumerate(("x",) + LayerWeights._fields):
+    err = (got[i] - p32[i]).abs()
+    within = err <= GRAD_TOL["atol"] + GRAD_TOL["rtol"] * p32[i].abs()
+    spread = max(float((n[i].double() - p64[i]).abs().max())
+                 for n in [p32] + nudged)
+    excused = ~within & ((got[i].double() - p64[i]).abs() <= 2 * spread)
+    failed = ~within & ~excused
+    report[name] = dict(max_abs_err=float(err.max()), f32_spread=spread,
+                        excused=int(excused.sum()), failed=int(failed.sum()))
+    ok &= not bool(failed.any())
+  return ok, report
 
 
 def weights_from_layer(layer) -> LayerWeights:

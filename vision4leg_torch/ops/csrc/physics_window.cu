@@ -39,6 +39,20 @@
 // on its scalar type: the float instantiation is the one the env runs,
 // the double one lets the kernel be held against the plain version in
 // float64, where rounding cannot hide a fault.
+//
+// Rounding: the source is built with -fmad=false (ops/nvcc.py
+// EXTRA_FLAGS), so that each product and each sum is rounded on its own,
+// as in the plain version and in the JAX package.  With nvcc's default
+// contraction of a * b + c into one FMA, the float32 kernel departed from
+// both in one env of tests/test_torch_kernel_cuda.py's sphere case: at its
+// third substep a foot sphere's ground penetration rad - x.z came out
+// -3.7e-9 m where the plain version, the host build of this source and
+// the float64 run give +1e-8 m, so the penalty contact, whose damping
+// term -150 v_n is already tens of newtons at first touch, stayed off for
+// one substep, and joint velocities parted by 2.4 rad/s
+// (tools/window_case_report.py --locate traces it).  Without contraction
+// the kernel is one more float32 rounding of the same sums and stays
+// within the env's own float32 spread.
 #include <cuda_runtime.h>
 
 #define NB 13          // bodies (0 = trunk)

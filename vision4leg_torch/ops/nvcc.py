@@ -25,6 +25,12 @@ SOURCES = {
     "physics_window": os.path.join(_HERE, "csrc", "physics_window.cu"),
     "transformer_layer": os.path.join(_HERE, "csrc", "transformer_layer.cu"),
 }
+# flags of one source beyond NVCC_FLAGS.  The window rounds every product
+# and sum on its own, as its plain version does: a multiply-add that nvcc
+# contracts into one FMA moves a contact sphere's height by a few units
+# in the last place, enough to flip the sign of a penetration of 1e-8 m,
+# and with it a penalty force of tens of newtons (csrc header).
+EXTRA_FLAGS = {"physics_window": ("-fmad=false",)}
 
 # per source: seconds, cached, path, ptxas log of the last build/load
 INFO: Dict[str, dict] = {}
@@ -40,10 +46,15 @@ def _nvcc() -> str:
   return found
 
 
+def flags(name: str) -> tuple:
+  """nvcc's flags for one source."""
+  return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def so_path(name: str) -> str:
   with open(SOURCES[name], "rb") as f:
     src = f.read()
-  digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+  digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
   return os.path.join(BUILD_DIR, f"{name}_{digest[:16]}.so")
 
 
@@ -63,7 +74,7 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     tmp = f"{out}.{os.getpid()}.tmp"
     log = open(tmp + ".log", "w")
     procs[name] = (subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]], stdout=log,
+        [_nvcc(), *flags(name), "-o", tmp, SOURCES[name]], stdout=log,
         stderr=subprocess.STDOUT), log, tmp, out)
   failed = []
   while procs:
