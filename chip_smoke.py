@@ -13,9 +13,12 @@ Phases, each printed with the seconds since start:
      and on a batch standing on boxes and spheres (`contact_case`), and
      on the 101-env batch of the card test
      tests/test_torch_kernel_cuda.py::test_kernel_matches_plain[2]
-     (`sphere_case`), by `physics_kernel.compare_with_plain`; then both
-     timed with CUDA events, and the bound of `ops/window_cost.py` for
-     the rollout data;
+     (`sphere_case`), by `physics_kernel.compare_with_plain`; two calls
+     must give the same bits; then the kernel alone
+     (`window_kernel_ms`), the whole wrapper call (with its env-first <->
+     env-last packing) and the plain version timed with CUDA events on
+     the rollout batch, the first two also on its first 8 envs (eval's
+     batch), and the bound of `ops/window_cost.py` for the rollout data;
   4. the collection path: thin-goal LocoTransformer collection (get_env
      from config/rl/static/locotransformer/thin-goal.json, the
      actor-critic at the config's full width with seeded random weights,
@@ -65,7 +68,8 @@ Phases, each printed with the seconds since start:
      1024 envs by `compare_with_plain`, on the MPC env's own states after
      two steps with the tau_ff/mask of their next controller tick, and on
      a `contact_case` batch with random masks that mix stance and swing
-     legs per env; both timed, and the bound of `ops/window_cost.py`;
+     legs per env (`hybrid_contact_case`); timed as in phase 3, at 1024
+     and 8 envs, and the bound of `ops/window_cost.py`;
   9. MPC collection: get_env from config/mpc/locotransformer/
      thin-goal.json, the LocoTransformer actor-critic at full width
      (action_dim 2, proprio 6), init_collector and one 8-step rollout at
@@ -302,6 +306,14 @@ def contact_case(model, tmpl, xy, cmd, dyn, n_sub):
           u(0.5, 1.25, E), u(0.5, 1.25, E), n_sub)
 
 
+def card_name() -> str:
+  """The card's name and power limit, as nvidia-smi gives them."""
+  smi = subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit",
+       "--format=csv,noheader"], capture_output=True, text=True, check=True)
+  return smi.stdout.strip().splitlines()[0]
+
+
 def time_ms(fn, n=25, warm=3):
   """Milliseconds per call of `fn`: CUDA events around n calls issued back
   to back after `warm` calls, so that the host's time to issue a call
@@ -319,6 +331,96 @@ def time_ms(fn, n=25, warm=3):
   e.record()
   e.synchronize()
   return s.elapsed_time(e) / n
+
+
+def window_kernel_ms(args, fn=None, n=25, warm=3):
+  """Milliseconds per launch of the window kernel alone on the window
+  inputs `args`: `physics_kernel._launch` packs them once, and its launch
+  runs the kernel (`fn`, the C launch function; default: this checkout's
+  build) warm + n times back to back, the last n between CUDA events.
+  The launch count is left as it was."""
+  import torch
+  from vision4leg_torch.ops import physics_kernel as pk
+  fn = pk.build_library().physics_window_launch if fn is None else fn
+  out = {}
+
+  def launch(*a):
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(warm):
+      fn(*a, stream)
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    s.record()
+    errs = [fn(*a, stream) for _ in range(n)]
+    e.record()
+    e.synchronize()
+    out["ms"] = s.elapsed_time(e) / n
+    return max(errs, key=abs)
+
+  before = pk.robot_window.launches
+  pk._launch(*args, launch=launch)
+  pk.robot_window.launches = before
+  return out["ms"]
+
+
+def take_envs(args, n):
+  """Window inputs `args` cut to their first n envs (the model is
+  shared)."""
+  import dataclasses
+  import torch
+
+  def cut(x):
+    if isinstance(x, torch.Tensor):
+      return x[:n]
+    if dataclasses.is_dataclass(x):
+      return dataclasses.replace(x, **{
+          f.name: cut(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    return x
+  return (args[0],) + tuple(cut(a) for a in args[1:])
+
+
+def same_bits(a, b) -> bool:
+  """Whether two window results (RobotState, pen) hold the same bits."""
+  import torch
+  from vision4leg_torch.ops import physics_kernel as pk
+  bits = lambda x: x.contiguous().view(
+      torch.int64 if x.dtype == torch.float64 else torch.int32)
+  pa, pb = pk._per_env(*a), pk._per_env(*b)
+  return all(torch.equal(bits(pa[k]), bits(pb[k])) for k in pa)
+
+
+def time_window(name, args, card, counts, hybrid=False):
+  """The window on `args` (1024 envs) and on its first 8 envs: kernel
+  alone and whole wrapper call, two turns each, the plain version once,
+  and the bound of `ops/window_cost.py`; logged and returned for the
+  kernels line."""
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.ops import window_cost
+  ms = {}
+  for n_env in (NUM_ENVS, 8):
+    a = take_envs(args, n_env)
+    before = pk.robot_window.launches
+    ms[n_env] = dict(
+        kernel=[window_kernel_ms(a) for _ in range(2)],
+        wrapper=[time_ms(lambda: pk.robot_window(*a)) for _ in range(2)])
+    pk.robot_window.launches = before
+  p_ms = time_ms(lambda: pk.window_plain(*args), n=20)
+  nbytes, ops = window_cost.window_bytes_and_ops(
+      args[0], args[4], args[5], args[8], False, counts, hybrid=hybrid)
+  t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+  bound_ms = max(t_bytes, t_ops)
+  fmt = lambda v: " / ".join(f"{t:.4f}" for t in v)
+  log(f"{name} physics_window on {card}, {args[8]} substeps: at "
+      f"{NUM_ENVS} envs kernel alone {fmt(ms[NUM_ENVS]['kernel'])} ms, "
+      f"wrapper call {fmt(ms[NUM_ENVS]['wrapper'])} ms; at 8 envs kernel "
+      f"alone {fmt(ms[8]['kernel'])} ms, wrapper call "
+      f"{fmt(ms[8]['wrapper'])} ms (25 back-to-back calls, two turns); "
+      f"plain {p_ms:.3f} ms (20 calls, {NUM_ENVS} envs); bound "
+      f"{bound_ms * 1e3:.3f} us ({nbytes} bytes -> {t_bytes * 1e3:.3f} us, "
+      f"{ops} f32 ops -> {t_ops * 1e3:.3f} us)")
+  return dict(ms=ms[NUM_ENVS]["kernel"][0], plain_ms=p_ms, bound_ms=bound_ms,
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              library_ms=None), ms
 
 
 # tolerances of tests/test_pallas.py for the JAX fused layer
@@ -679,12 +781,43 @@ def phase_tf32(net, obs):
   return {k: e for k, (e, _) in errs.items()}
 
 
+def hybrid_contact_case(mpc_env, tmpl, tick):
+  """`contact_case` on the MPC model, around the envs of the MPC tick
+  inputs `tick`, with its dynamics and substeps, random feedforward
+  torques and random per-leg stance masks that mix stance and swing legs
+  in every env (hybrid mode)."""
+  import torch
+  dev, n = mpc_env.device, tick[2].shape[0]
+  g = torch.Generator().manual_seed(9)
+  xy = tick[1].phys.pos[:, :2]
+  cmd = tmpl.phys.joint_q + 0.3 * (
+      torch.rand(n, 12, generator=g) - 0.5).to(dev)
+  legs = (torch.rand(n, 4, generator=g) < 0.5).to(dev)
+  legs[:, 0], legs[:, 1] = True, False
+  tau_ff = (20.0 * (torch.rand(n, 12, generator=g) - 0.5)).to(dev)
+  return contact_case(mpc_env.model, tmpl, xy, cmd, tick[3], tick[8]) + (
+      False, tau_ff, torch.repeat_interleave(legs.float(), 3, dim=-1))
+
+
+def check_repeatable(name, args):
+  """Two kernel calls on the same inputs give the same bits, float32 and
+  float64 (the launch count is left as it was)."""
+  from vision4leg_torch.ops import physics_kernel as pk
+  before = pk.robot_window.launches
+  for a in (args, tuple(pk._double(x) for x in args)):
+    if not same_bits(pk.robot_window(*a), pk.robot_window(*a)):
+      raise AssertionError(f"two physics_window calls on {name} gave "
+                           f"different bits")
+  pk.robot_window.launches = before
+  log(f"physics_window [{name}]: two calls gave the same bits, float32 "
+      f"and float64")
+
+
 def phase_hybrid(mpc_env, thin_env, card):
   """The window kernel's hybrid mode against its plain version at the MPC
-  env's shapes; returns its numbers for the kernels line."""
+  env's shapes; returns its numbers for the kernels line and its times."""
   import torch
   from vision4leg_torch.ops import physics_kernel as pk
-  from vision4leg_torch.ops import window_cost
   dev = mpc_env.device
   gen = torch.Generator(device=dev).manual_seed(5)
   t = time.perf_counter()
@@ -699,26 +832,14 @@ def phase_hybrid(mpc_env, thin_env, card):
   for _ in range(2):
     states, _, _, _, _ = mpc_env.step_batch(states, rand_act(), gen)
   cases = {"MPC tick": mpc_window_inputs(mpc_env, states, rand_act())}
-  n_sub = cases["MPC tick"][8]
   mask = cases["MPC tick"][-1]
   stance = mask.reshape(NUM_ENVS, 4, 3)[..., 0]
   log(f"MPC tick inputs: stance legs per env {stance.sum(-1).float().mean():.2f} "
       f"on average, envs mixing stance and swing "
       f"{int(((stance > 0).any(-1) & (stance == 0).any(-1)).sum())}")
 
-  # contact_case on the MPC model with random per-leg masks
-  g = torch.Generator().manual_seed(9)
-  rs = cases["MPC tick"][1]
-  xy = rs.phys.pos[:, :2]
-  tmpl = thin_env.settled_template()
-  cmd = tmpl.phys.joint_q + 0.3 * (
-      torch.rand(NUM_ENVS, 12, generator=g) - 0.5).to(dev)
-  legs = (torch.rand(NUM_ENVS, 4, generator=g) < 0.5).to(dev)
-  legs[:, 0], legs[:, 1] = True, False
-  tau_ff = (20.0 * (torch.rand(NUM_ENVS, 12, generator=g) - 0.5)).to(dev)
-  cases["contact"] = contact_case(
-      mpc_env.model, tmpl, xy, cmd, cases["MPC tick"][3], n_sub) + (
-          False, tau_ff, torch.repeat_interleave(legs.float(), 3, dim=-1))
+  cases["contact"] = hybrid_contact_case(
+      mpc_env, thin_env.settled_template(), cases["MPC tick"])
 
   max_err = 0.0
   for name, args in cases.items():
@@ -733,26 +854,11 @@ def phase_hybrid(mpc_env, thin_env, card):
     max_err = max(max_err, rep["max_abs_err"])
 
   args = cases["MPC tick"]
-  before = pk.robot_window.launches
-  k_ms = time_ms(lambda: pk.robot_window(*args))
-  p_ms = time_ms(lambda: pk.window_plain(*args), n=20)
-  k_ms2 = time_ms(lambda: pk.robot_window(*args))
-  pk.robot_window.launches = before
+  check_repeatable("hybrid, MPC tick", args)
   counts = {}
   pk.window_plain(*args, counts=counts)
-  nbytes, ops = window_cost.window_bytes_and_ops(
-      args[0], args[4], args[5], n_sub, False, counts, hybrid=True)
-  t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
-  bound_ms = max(t_bytes, t_ops)
-  log(f"hybrid physics_window at {NUM_ENVS} envs x {n_sub} substeps on "
-      f"{card}: kernel {k_ms:.4f} ms / {k_ms2:.4f} ms (25 back-to-back "
-      f"calls, two turns), plain {p_ms:.3f} ms (20 calls); bound "
-      f"{bound_ms * 1e3:.3f} us ({nbytes} bytes -> {t_bytes * 1e3:.3f} us, "
-      f"{ops} f32 ops -> {t_ops * 1e3:.3f} us)")
-  return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
-              bound_ms=bound_ms,
-              bound_by="operations" if t_ops >= t_bytes else "bytes",
-              library_ms=None)
+  numbers, ms = time_window("hybrid", args, card, counts, hybrid=True)
+  return dict(max_abs_err=max_err, **numbers), ms
 
 
 def phase_mpc_collection(card, dev):
@@ -845,7 +951,6 @@ def main() -> int:
   from vision4leg_torch.ops import attention as att
   from vision4leg_torch.ops import nvcc
   from vision4leg_torch.ops import physics_kernel as pk
-  from vision4leg_torch.ops import window_cost
 
   # outputs below are compared against references: no TF32 anywhere
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -853,10 +958,7 @@ def main() -> int:
   dev = torch.device("cuda")
 
   # --- 1. the card -------------------------------------------------------
-  smi = subprocess.run(
-      ["nvidia-smi", "--query-gpu=name,power.limit",
-       "--format=csv,noheader"], capture_output=True, text=True, check=True)
-  card = smi.stdout.strip().splitlines()[0]
+  card = card_name()
   print(card, flush=True)
   log(f"torch {torch.__version__} cuda {torch.version.cuda} "
       f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
@@ -926,22 +1028,10 @@ def main() -> int:
     max_err = max(max_err, rep["max_abs_err"])
 
   args = cases["rollout"]
-  launches_before = pk.robot_window.launches
-  k_ms = time_ms(lambda: pk.robot_window(*args))
-  p_ms = time_ms(lambda: pk.window_plain(*args), n=20)
-  k_ms2 = time_ms(lambda: pk.robot_window(*args))
-  pk.robot_window.launches = launches_before
+  check_repeatable("rollout", args)
   counts = {}
   pk.window_plain(*args, counts=counts)
-  nbytes, ops = window_cost.window_bytes_and_ops(
-      args[0], args[4], args[5], args[8], False, counts)
-  t_bytes = nbytes / 3.35e12 * 1e3
-  t_ops = ops / 67e12 * 1e3
-  bound_ms = max(t_bytes, t_ops)
-  log(f"physics_window at 1024 envs on {card}: kernel {k_ms:.4f} ms / "
-      f"{k_ms2:.4f} ms (25 back-to-back calls, two turns), plain "
-      f"{p_ms:.3f} ms (20 calls); bound {bound_ms * 1e3:.3f} us ({nbytes} bytes -> "
-      f"{t_bytes * 1e3:.3f} us, {ops} f32 ops -> {t_ops * 1e3:.3f} us)")
+  window, window_ms = time_window("rollout", args, card, counts)
 
   # --- 4. the collection path --------------------------------------------
   rollout = make_rollout(env, meta, net, params)
@@ -1002,7 +1092,7 @@ def main() -> int:
 
   # --- 8. the window kernel's hybrid mode ----------------------------------
   mpc_env, _, _, _ = build_mpc_path(dev)
-  hybrid = phase_hybrid(mpc_env, env, card)
+  hybrid, hybrid_ms = phase_hybrid(mpc_env, env, card)
   del mpc_env
   torch.cuda.empty_cache()
 
@@ -1018,10 +1108,8 @@ def main() -> int:
       name="physics_window", route="cuda",
       source="vision4leg_torch/ops/csrc/physics_window.cu",
       replaces="vision4leg_tpu/ops/physics_kernel.py:122",
-      launches=launches["physics_window"], max_abs_err=max_err, ms=k_ms,
-      plain_ms=p_ms, bound_ms=bound_ms,
-      bound_by="operations" if t_ops >= t_bytes else "bytes",
-      library_ms=None), dict(
+      launches=launches["physics_window"], max_abs_err=max_err,
+      **window), dict(
       name="transformer_layer", route="cuda",
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
       replaces="vision4leg_tpu/ops/attention.py:116",
@@ -1036,6 +1124,8 @@ def main() -> int:
                ":125-136)",
       launches=mpc_launches, **hybrid)]
   print(json.dumps({"kernels": kernels, "card": card,
+                    "window_ms": {"rollout": window_ms,
+                                  "hybrid": hybrid_ms},
                     "collection_env_steps_per_s": horizon * num_envs / dt,
                     "training": launches["epochs"],
                     "mpc_collection_env_steps_per_s": mpc_rate,

@@ -1,6 +1,8 @@
 """The CUDA physics-window kernel against its plain PyTorch version, on
 the card (skipped without one: run `python -m pytest tests/ -m cuda` on
-the card).  The comparison is `physics_kernel.compare_with_plain`."""
+the card).  The comparison is `physics_kernel.compare_with_plain`.  The
+kernel runs one warp per env, four envs a block: 101 and 6 envs end in a
+ragged block, 8 is eval's batch."""
 import numpy as np
 import pytest
 import torch
@@ -110,3 +112,61 @@ def test_hybrid_kernel_matches_plain(cuda, n_sub):
   assert torch.equal(new.observed_torques[mask > 0.5], tau_ff[mask > 0.5])
   ok, report = pk.compare_with_plain(args)
   assert ok, report
+
+
+def _batch(cuda, E, seed, hybrid):
+  """E standing envs near a box and a sphere, commands within 0.3 rad of
+  the standing pose; in hybrid mode 5 substeps of the MPC env's model
+  with feedforward torques under masks that mix stance and swing legs."""
+  rng = np.random.default_rng(seed)
+  model = a1_model.build(dt=0.001 if hybrid else 0.0025, device=cuda)
+  t = lambda x: torch.tensor(np.asarray(x, np.float32), device=cuda)
+  q0 = np.array([0, 0.9, -1.8] * 4, np.float32)
+  phys = engine.PhysState(
+      pos=t(np.c_[rng.uniform(-0.1, 0.1, (E, 2)), np.full(E, 0.27)]),
+      quat=t(np.tile([1.0, 0, 0, 0], (E, 1))),
+      joint_q=t(q0 + rng.uniform(-0.1, 0.1, (E, 12))),
+      ang=t(rng.normal(0, 0.2, (E, 3))), lin=t(rng.normal(0, 0.2, (E, 3))),
+      joint_qd=t(rng.normal(0, 0.5, (E, 12))))
+  boxes = np.zeros((E, 8, 8), np.float32)
+  boxes[:, 0] = [0.15, 0.0, 0.05, 0.1, 0.1, 0.05, 0.3, 1.0]
+  spheres = np.zeros((E, 2, 5), np.float32)
+  spheres[:, 0] = [-0.18, 0.13, 0.0, 0.12, 1.0]
+  cmd = t(q0 + rng.uniform(-0.3, 0.3, (E, 12)))
+  args = (model, a1.init_robot_state(phys), cmd,
+          a1.default_dynamics(model, (E,)), t(boxes), t(spheres),
+          t(np.ones(E)), t(np.ones(E)))
+  if not hybrid:
+    return args + (16, True)
+  legs = rng.uniform(size=(E, 4)) < 0.5
+  legs[:, 0], legs[:, 1] = True, False
+  return args + (5, False, t(rng.uniform(-8.0, 8.0, (E, 12))),
+                 t(np.repeat(legs, 3, axis=1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [8, 6, 1])
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_kernel_matches_plain_on_small_batches(cuda, E, hybrid):
+  """Eval's batch (8 envs), a ragged block (6) and one env, in both
+  modes."""
+  args = _batch(cuda, E, seed=E, hybrid=hybrid)
+  ok, report = pk.compare_with_plain(args)
+  assert ok, report
+
+
+def _bits(x):
+  return x.contiguous().view(torch.int64 if x.dtype == torch.float64
+                             else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_kernel_calls_give_the_same_bits(cuda, hybrid):
+  """Two calls on the same inputs give the same bits, float32 and
+  float64."""
+  args = _batch(cuda, 101, seed=3, hybrid=hybrid)
+  for a in (args, tuple(pk._double(x) for x in args)):
+    one, two = (pk._per_env(*pk.robot_window(*a)) for _ in range(2))
+    for k in one:
+      assert torch.equal(_bits(one[k]), _bits(two[k])), k

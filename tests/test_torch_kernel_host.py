@@ -1,11 +1,14 @@
 """The physics-window kernel's CUDA source compiled for the host and held
 against its plain PyTorch version on the CPU.
 
-The kernel body is plain C++ apart from a few CUDA keywords; here it is
-built with g++ against a header that defines those keywords away, and
-run one env per call through the same packing code the CUDA launch uses
-(`ops.physics_kernel._launch`).  This checks the kernel's arithmetic and
-buffer layout without a card; the card runs it through
+The kernel is written as warp-synchronous phases (`PW_PHASE`), each a
+function of (env, lane) whose lanes write disjoint outputs in the env's
+shared-memory slab and read only what earlier phases wrote.  Here the
+source is built with g++ against a header that defines the CUDA keywords
+away and makes each phase run for lanes 0..31 in turn before the next
+starts, env after env, with the env's slab filled with NaN, through the
+same packing code the CUDA launch uses (`ops.physics_kernel._launch`).  This checks the kernel's arithmetic,
+indexing and slab layout without a card; the card runs it through
 tests/test_torch_kernel_cuda.py and chip_smoke.py.  Skipped where no
 g++ is installed.
 
@@ -19,6 +22,7 @@ import ctypes
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 
@@ -37,28 +41,43 @@ _HOST_HEADER = """
 #include <cstddef>
 #define __global__
 #define __device__
-#define __constant__
+#define __host__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
-struct Dim3 { int x = 0, y = 0, z = 0; };
-static Dim3 blockIdx, threadIdx, blockDim;
+// with reversed set, warps and lanes run in the opposite order
+static int reversed = 0;
+// a phase: its statement for lanes 0..31 in turn
+#define PW_PHASE(kind, ...)                                    \\
+  for (int pw_lane = 0; pw_lane < 32; ++pw_lane) {             \\
+    const int lane = reversed ? 31 - pw_lane : pw_lane;        \\
+    __VA_ARGS__;                                               \\
+  }
 """
 
 _HOST_LAUNCH = """
+#include <algorithm>
+#include <vector>
+extern "C" void physics_window_host_reverse(int r) { reversed = r; }
+
+// Each block's warps one after another (their last block's idle ones
+// too), each env's slab alone in a buffer filled with NaN, as garbage in
+// the shared memory, and followed by a guard band that must stay NaN.
 template <typename T>
-static void run_all(const void* state_in, void* state_out, const void* params,
-                    const void* model, void* pen_out, int E, int K, int Q,
-                    int n_substeps, int interpolate, int hybrid, double dt) {
-  blockDim.x = 32;
-  for (int e = 0; e < E; ++e) {
-    blockIdx.x = e / 32;
-    threadIdx.x = e % 32;
-    physics_window_kernel<T>((const T*)state_in, (T*)state_out,
-                             (const T*)params, (const T*)model, (T*)pen_out,
-                             E, K, Q, n_substeps, interpolate, hybrid,
-                             (T)dt);
-  }
+static int run_all(const PwArgs<T>& a) {
+  const int slab = pw_slab_size(a.K, a.Q), guard = 64;
+  const int blocks = (a.E + PW_WARPS - 1) / PW_WARPS;
+  std::vector<T> mdl(M_SIZE), x(slab + guard);
+  for (int t = 0; t < PW_THREADS; ++t)
+    pw_stage_model(a, mdl.data(), t, PW_THREADS);
+  for (int blk = 0; blk < blocks; ++blk)
+    for (int i = 0; i < PW_WARPS; ++i) {
+      const int w = reversed ? PW_WARPS - 1 - i : i;
+      std::fill(x.begin(), x.end(), (T)NAN);
+      pw_window(a, mdl.data(), x.data(), blk * PW_WARPS + w, 0);
+      for (int g = slab; g < slab + guard; ++g)
+        if (!std::isnan(x[g])) return 1;
+    }
+  return 0;
 }
 
 extern "C" int physics_window_launch(const void* state_in, void* state_out,
@@ -67,12 +86,12 @@ extern "C" int physics_window_launch(const void* state_in, void* state_out,
                                      int n_substeps, int interpolate,
                                      int hybrid, double dt, int f64) {
   if (f64)
-    run_all<double>(state_in, state_out, params, model, pen_out, E, K, Q,
-                    n_substeps, interpolate, hybrid, dt);
-  else
-    run_all<float>(state_in, state_out, params, model, pen_out, E, K, Q,
-                   n_substeps, interpolate, hybrid, dt);
-  return 0;
+    return run_all(pw_args<double>(state_in, state_out, params, model,
+                                   pen_out, E, K, Q, n_substeps,
+                                   interpolate, hybrid, dt));
+  return run_all(pw_args<float>(state_in, state_out, params, model, pen_out,
+                                E, K, Q, n_substeps, interpolate, hybrid,
+                                dt));
 }
 """
 
@@ -84,8 +103,7 @@ def _build_host(d, src):
   if gxx is None:
     pytest.skip("needs g++ to build the kernel source for the host")
   (d / "cuda_runtime.h").write_text(_HOST_HEADER)
-  body = src[:src.index('extern "C" int physics_window_launch')]
-  (d / "kernel.cpp").write_text(body + _HOST_LAUNCH)
+  (d / "kernel.cpp").write_text(src + _HOST_LAUNCH)
   so = d / "kernel.so"
   proc = subprocess.run(
       [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
@@ -93,10 +111,12 @@ def _build_host(d, src):
        str(d / "kernel.cpp")], capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr
   assert "warning" not in proc.stderr, proc.stderr
-  fn = ctypes.CDLL(str(so)).physics_window_launch
+  lib = ctypes.CDLL(str(so))
+  fn = lib.physics_window_launch
   fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
       ctypes.c_double, ctypes.c_int]
   fn.restype = ctypes.c_int
+  fn.reverse = lib.physics_window_host_reverse
   return fn
 
 
@@ -156,6 +176,53 @@ def test_kernel_source_matches_plain_on_host(host_launch, n_sph,
   # most envs touch the box (or the sphere): the contact paths run
   _, pen_ref = pk.window_plain(*args)
   assert bool((pen_ref[..., 1] > 0).any(-1).float().mean() > 0.5)
+
+
+def _warps_per_block():
+  with open(pk.SOURCE) as f:
+    return int(re.search(r"#define PW_WARPS (\d+)", f.read()).group(1))
+
+
+@pytest.mark.parametrize("extra", [1, -1])
+def test_kernel_source_matches_plain_on_ragged_batches(host_launch, extra):
+  """A batch whose last block is ragged (extra = 1: E = PW_WARPS + 1,
+  with interpolated commands) and one env alone in hybrid mode (extra =
+  -1: E = 1): the envs of a block are independent and its idle warps
+  write nothing."""
+  if extra < 0:
+    args = _hybrid_args(1, seed=21)
+  else:
+    E = _warps_per_block() + extra
+    args = _inputs(E, 2, seed=10 + E, interpolate=True)
+  ok, report = pk.compare_with_plain(
+      args, run=lambda *a: pk._launch(*a, launch=host_launch))
+  assert ok, report
+
+
+def _bits(x):
+  return x.contiguous().view(torch.int64 if x.dtype == torch.float64
+                             else torch.int32)
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_kernel_phases_do_not_depend_on_lane_order(host_launch, hybrid):
+  """Every phase's lanes write disjoint outputs and read only what earlier
+  phases wrote: run with warps and lanes in the opposite order, the
+  kernel gives the same bits, float32 and float64."""
+  args = _hybrid_args(6, seed=2) if hybrid else _inputs(6, 2, 4, True)
+  for a in (args, tuple(pk._double(x) for x in args)):
+    got = []
+    for rev in (0, 1):
+      host_launch.reverse(rev)
+      try:
+        rs, pen = pk._launch(*a, launch=host_launch)
+      finally:
+        host_launch.reverse(0)
+      out = pk._per_env(rs, pen).values()
+      assert all(bool(torch.isfinite(v).all()) for v in out)
+      got.append([_bits(v) for v in out])
+    for x, y in zip(*got):
+      assert torch.equal(x, y)
 
 
 def test_kernel_source_matches_plain_on_smoke_contact_case(host_launch):
@@ -219,13 +286,13 @@ def test_hybrid_kernel_source_matches_plain_on_host(host_launch):
 # Mutations of the hybrid path that the comparison must catch.
 _HYBRID_MUTATIONS = {
     "blend flipped": (
-        "tau[j] = (T(1.0) - m) * tau[j] + m * hyb[(size_t)j * E];",
-        "tau[j] = m * tau[j] + (T(1.0) - m) * hyb[(size_t)j * E];"),
+        "tau = (T(1.0) - m) * tau + m * hyb[j];",
+        "tau = m * tau + (T(1.0) - m) * hyb[j];"),
     "mask read from the tau_ff rows": (
-        "T m = hyb[(size_t)(NJ + j) * E];", "T m = hyb[(size_t)j * E];"),
+        "T m = hyb[NJ + j];", "T m = hyb[j];"),
     "hybrid rows before the spheres": (
-        "const T* hyb = PP + (size_t)(P_BOX + 8 * K + 5 * Q) * E;",
-        "const T* hyb = PP + (size_t)(P_BOX + 8 * K) * E;"),
+        "const T* hyb = x + X_BOX + 9 * a.K + 5 * a.Q;",
+        "const T* hyb = x + X_BOX + 9 * a.K;"),
 }
 
 

@@ -3,6 +3,7 @@
     python3 tools/profile_torch_rollout.py            # a rollout
     python3 tools/profile_torch_rollout.py --train    # a PPO update epoch
     python3 tools/profile_torch_rollout.py --mpc      # an MPC rollout
+    python3 tools/profile_torch_rollout.py --eval     # a policy eval
 
 Builds the main path as chip_smoke.py does (thin-goal JSON, 1024 envs,
 LocoTransformer at full width, random weights from a seed), runs one
@@ -30,6 +31,12 @@ phase 9: config/mpc/locotransformer/thin-goal.json, 1024 envs, an 8-step
 rollout), with spans on the env step, the per-step KKT inverse, the
 controller tick (gait, estimator, swing, warm-QP stance), the hybrid
 window's launch, the camera and the policy.
+
+With --eval it profiles the trainer's eval instead: a PPOAgent built as
+for --train runs `evaluate` (chip_smoke.py's eval: the config's eval envs,
+32 steps) once to warm up, twice timed, then once under the profiler,
+with spans on the env step, the physics window's launch, the camera and
+the policy.
 """
 from __future__ import annotations
 
@@ -100,38 +107,94 @@ def _report(prof, wall, spans, card, extra):
                         calls=e.count) for e in kernels])), flush=True)
 
 
+def span(name, fn):
+  """fn inside a profiler range named `name`."""
+  from torch.profiler import record_function
+
+  def wrapped(*args, **kwargs):
+    with record_function(name):
+      return fn(*args, **kwargs)
+  return wrapped
+
+
+def make_agent(env, meta, params, tmp):
+  """A PPOAgent of the thin-goal config as chip_smoke.py's training phase
+  builds it (1024 envs, full width, fused layer on, eval of 32 steps)."""
+  import chip_smoke
+  from vision4leg_torch.algo.agent import PPOAgent
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter.ppo_locotransformer import build_module
+  from vision4leg_torch.utils.logger import Logger
+  logger = Logger("profile", params["env_name"], 0, params, tmp)
+  return PPOAgent(
+      env=env, ac_module=build_module(env, params),
+      cfg=common.ppo_config(params), num_envs=chip_smoke.NUM_ENVS, seed=0,
+      logger=logger, save_dir=os.path.join(tmp, "model"),
+      obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"],
+      reward_scale=meta["reward_scale"], fused_attention=True,
+      fused_update=True, num_eval_envs=common.num_eval_envs(params),
+      eval_horizon=chip_smoke.EVAL_HORIZON, device=env.device)
+
+
+def evaluate(card) -> int:
+  """Profile the trainer's eval (the window at eval's batch)."""
+  import tempfile
+
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+
+  import chip_smoke
+  from vision4leg_torch.ops import physics_kernel as pk
+
+  env, meta, _, params = chip_smoke.build_main_path(torch.device("cuda"))
+  with tempfile.TemporaryDirectory(prefix="profile_eval_") as tmp:
+    agent = make_agent(env, meta, params, tmp)
+    spans = ("env.step_batch", "physics_window", "camera", "policy.pi")
+    env.step_batch = span("env.step_batch", env.step_batch)
+    env._render = span("camera", env._render)
+    pk._launch = span("physics_window", pk._launch)
+    agent.apply_pi = span("policy.pi", agent.apply_pi)
+    agent.evaluate()                            # warm-up
+    walls = []
+    for _ in range(2):
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      agent.evaluate()
+      torch.cuda.synchronize()
+      walls.append(time.perf_counter() - t)
+    print(f"steady evals ({agent.num_eval_envs} envs x "
+          f"{agent.eval_horizon} steps) on {card}: "
+          + ", ".join(f"{w:.4f}s" for w in walls), flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      agent.evaluate()
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t
+  _report(prof, wall, spans, card, dict(
+      envs=agent.num_eval_envs, steps=agent.eval_horizon,
+      steady_wall_s=walls))
+  return 0
+
+
 def train(card) -> int:
   """Profile the PPO update of one thin-goal training epoch."""
   import tempfile
 
   import torch
-  from torch.profiler import ProfilerActivity, profile, record_function
+  from torch.profiler import ProfilerActivity, profile
 
   import chip_smoke
-  from vision4leg_torch.algo.agent import PPOAgent
   from vision4leg_torch.ops import attention as att
   from vision4leg_torch.starter import common
-  from vision4leg_torch.starter.ppo_locotransformer import build_module
-  from vision4leg_torch.utils.logger import Logger
 
   dev = torch.device("cuda")
   env, meta, _, params = chip_smoke.build_main_path(dev)
   cfg = common.ppo_config(params)
 
-  def span(name, fn):
-    def wrapped(*args, **kwargs):
-      with record_function(name):
-        return fn(*args, **kwargs)
-    return wrapped
-
   with tempfile.TemporaryDirectory(prefix="profile_train_") as tmp:
-    logger = Logger("profile", params["env_name"], 0, params, tmp)
-    agent = PPOAgent(
-        env=env, ac_module=build_module(env, params), cfg=cfg,
-        num_envs=chip_smoke.NUM_ENVS, seed=0, logger=logger,
-        save_dir=os.path.join(tmp, "model"), obs_norm=meta["obs_norm"],
-        env_time_limit=meta["horizon"], reward_scale=meta["reward_scale"],
-        fused_attention=True, fused_update=True, device=dev)
+    agent = make_agent(env, meta, params, tmp)
     walls = []
     for _ in range(2):
       torch.cuda.synchronize()
@@ -176,7 +239,7 @@ def main() -> int:
   if not torch.cuda.is_available():
     print("profile_torch_rollout: no CUDA device", file=sys.stderr)
     return 2
-  from torch.profiler import ProfilerActivity, profile, record_function
+  from torch.profiler import ProfilerActivity, profile
 
   import chip_smoke
   from vision4leg_torch.collector import rollout as rollout_lib
@@ -189,16 +252,12 @@ def main() -> int:
   print(card, flush=True)
   if "--train" in sys.argv[1:]:
     return train(card)
+  if "--eval" in sys.argv[1:]:
+    return evaluate(card)
   dev = torch.device("cuda")
   mpc = "--mpc" in sys.argv[1:]
   build = chip_smoke.build_mpc_path if mpc else chip_smoke.build_main_path
   env, meta, net, params = build(dev)
-
-  def span(name, fn):
-    def wrapped(*args, **kwargs):
-      with record_function(name):
-        return fn(*args, **kwargs)
-    return wrapped
 
   spans = ("env.reset", "env.step_batch", "physics_window", "camera",
            "policy.pi_v")
