@@ -51,7 +51,14 @@ Phases, each printed with the seconds since start:
      kernels, of the plain version and of torch's own
      nn.TransformerEncoderLayer (the yardstick, never called by the port)
      timed with CUDA events, with the bounds of `attention.layer_cost` and
-     `layer_grad_cost`;
+     `layer_grad_cost`.  The forward kernel's products run in
+     3xTF32 on the tensor cores: its bound is three TF32 FLOPs for each
+     float32 one at the dense TF32 peak, printed beside the same FLOPs on
+     the float32 CUDA cores; also the forward at eval's B = 8, the saving
+     forward's bound (`layer_saved_cost`: the residuals' bytes), the
+     samples each tile takes at each B, the forward's ptxas counts (no
+     spills) and its SASS's tensor-core (HMMA) instructions (at least
+     one);
   6. the training path: the port's starter pieces build a PPOAgent from
      the same config (1024 envs, full width, fused layer on in
      collection and update), which trains two epochs with an eval after
@@ -427,6 +434,7 @@ def time_window(name, args, card, counts, hybrid=False):
 LAYER_FWD_TOL = dict(atol=2e-5, rtol=1e-4)
 LAYER_GRAD_TOL = dict(atol=3e-5, rtol=1e-4)
 LAYER_BATCHES = (1024, 1000, 8)   # rollout/update minibatch, ragged, eval
+EVAL_BATCH = LAYER_BATCHES[-1]    # the eval's envs (common.num_eval_envs)
 TRAIN_EPOCHS = 2
 EVAL_HORIZON = 32
 
@@ -520,6 +528,18 @@ def phase_layer(net, obs, card):
       f"bit-identical gradients (x and 16 weights)")
   ptx = nvcc.ptxas_counts(nvcc.INFO["transformer_layer"]["log"])
   log(f"transformer_layer_bwd ptxas: {json.dumps({k: v for k, v in ptx.items() if 'bwd' in k})}")
+  # the forward: its registers and spills, and its tensor-core (HMMA)
+  # instructions, which show that its products run on tensor cores
+  fwd_ptx = {k: v for k, v in ptx.items() if "bwd" not in k}
+  hmma = sum(v for k, v in nvcc.sass_counts("transformer_layer",
+                                             "HMMA").items()
+             if "bwd" not in k)
+  log(f"transformer_layer (forward) ptxas: {json.dumps(fwd_ptx)}; HMMA "
+      f"instructions in its SASS: {hmma}")
+  if hmma == 0 or any(v["spill_store_bytes"] or v["spill_load_bytes"]
+                      for v in fwd_ptx.values()):
+    raise AssertionError("the forward kernel spills or has no tensor-core "
+                         "instructions")
 
   # torch's own layer (eval, no_grad: its fused native path), same weights
   D, F = tokens.shape[-1], w0.w1.shape[1]
@@ -549,11 +569,13 @@ def phase_layer(net, obs, card):
 
   before = (att.fused_transformer_layer.launches,
             att.fused_transformer_layer_bwd.launches)
+  eval_x = tokens[:EVAL_BATCH].contiguous()
   with torch.no_grad():
     k_ms = time_ms(lambda: att.fused_transformer_layer(tokens, w0))
     p_ms = time_ms(lambda: att.layer_math(tokens, w0), n=20)
     l_ms = time_ms(lambda: lib(tokens), n=20)
     k_ms2 = time_ms(lambda: att.fused_transformer_layer(tokens, w0))
+    k8_ms = time_ms(lambda: att.fused_transformer_layer(eval_x, w0))
   # forward + backward, as the PPO update runs it (row 2ad)
   xi = tokens.clone().requires_grad_(True)
   wi = att.LayerWeights(*[t.clone().requires_grad_(True) for t in w0])
@@ -582,13 +604,24 @@ def phase_layer(net, obs, card):
       att.fused_transformer_layer_bwd.launches = before
   B, T, D = tokens.shape
   nbytes, flops = att.layer_cost(B, T, D, F)
+  # the products run in 3xTF32 on the tensor cores: three TF32
+  # products for each float32 one at the dense TF32 peak; the same FLOPs
+  # on the CUDA cores' float32 peak is the bound of earlier kernels
   t_bytes, t_ops = nbytes / 3.35e12 * 1e3, flops / 67e12 * 1e3
-  bound_ms = max(t_bytes, t_ops)
+  t_tc = 3 * flops / 495e12 * 1e3
+  bound_ms, fp32_bound_ms = max(t_bytes, t_tc), max(t_bytes, t_ops)
+  s_bytes, _ = att.layer_saved_cost(B, T, D, F)
+  save_bound_ms = max(s_bytes / 3.35e12 * 1e3, t_tc)
+  tiles = {b: att.tile_samples(b, T, D, F) for b in LAYER_BATCHES}
   log(f"transformer_layer at B={B} T={T} D={D} F={F} on {card}: kernel "
       f"{k_ms:.4f} ms / {k_ms2:.4f} ms (25 back-to-back calls, two turns), "
-      f"plain {p_ms:.4f} ms, torch.nn.TransformerEncoderLayer {l_ms:.4f} "
-      f"ms (20 calls each); bound {bound_ms * 1e3:.3f} us ({nbytes} bytes -> "
-      f"{t_bytes * 1e3:.3f} us, {flops} f32 FLOP -> {t_ops * 1e3:.3f} us)")
+      f"at B={EVAL_BATCH} {k8_ms:.4f} ms, plain {p_ms:.4f} ms, "
+      f"torch.nn.TransformerEncoderLayer {l_ms:.4f} ms (20 calls each); "
+      f"bound {bound_ms * 1e3:.3f} us in 3xTF32 ({nbytes} bytes -> "
+      f"{t_bytes * 1e3:.3f} us, 3 x {flops} TF32 FLOP -> "
+      f"{t_tc * 1e3:.3f} us), {fp32_bound_ms * 1e3:.3f} us for the same "
+      f"FLOPs on the float32 CUDA cores ({t_ops * 1e3:.3f} us); samples a "
+      f"tile by B: {tiles}")
   g_bytes, g_flops = att.layer_grad_cost(B, T, D, F)
   gt_bytes, gt_ops = g_bytes / 3.35e12 * 1e3, g_flops / 67e12 * 1e3
   g_bound = max(gt_bytes, gt_ops)
@@ -598,18 +631,24 @@ def phase_layer(net, obs, card):
       f"{plain_ad_ms:.4f} ms, torch.nn.TransformerEncoderLayer autograd "
       f"{lib_ad_ms:.4f} ms (20 calls each); bound {g_bound * 1e3:.3f} us "
       f"({g_bytes} bytes -> {gt_bytes * 1e3:.3f} us, {g_flops} f32 FLOP -> "
-      f"{gt_ops * 1e3:.3f} us); parts: saving forward {save_ms:.4f} ms, "
+      f"{gt_ops * 1e3:.3f} us); parts: saving forward {save_ms:.4f} ms "
+      f"(bound {save_bound_ms * 1e3:.3f} us: {s_bytes} bytes with the "
+      f"residuals), "
       f"backward {bwd_ms:.4f} ms (of which the backward kernel with its "
       f"weight transposes {bwd_k_ms:.4f} ms; the plain version "
       f"layer_backward_math {bwd_plain_ms:.4f} ms)")
   fwd = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             bound_by="operations" if t_tc >= t_bytes else "bytes",
              library_ms=l_ms)
   bwd = dict(max_abs_err=bwd_err, ms=ad_ms, plain_ms=plain_ad_ms,
              bound_ms=g_bound,
              bound_by="operations" if gt_ops >= gt_bytes else "bytes",
              library_ms=lib_ad_ms)
-  return fwd, bwd
+  extra = dict(eval_batch_ms=k8_ms, fp32_bound_ms=fp32_bound_ms,
+               saving_forward_ms=save_ms, saving_forward_bound_ms=save_bound_ms,
+               tile_samples=tiles, forward_hmma_instructions=hmma,
+               forward_ptxas=fwd_ptx)
+  return fwd, bwd, extra
 
 
 def phase_training(env, meta, params, card):
@@ -1077,7 +1116,7 @@ def main() -> int:
       f"{float(traj.rewards.mean()):.4f}")
 
   # --- 5. the transformer-layer kernel against its plain version --------
-  layer, layer_bwd = phase_layer(net, traj.obs[0], card)
+  layer, layer_bwd, layer_extra = phase_layer(net, traj.obs[0], card)
   tf32_obs = traj.obs[0].clone()
   del cs, traj, last_v
   torch.cuda.empty_cache()
@@ -1131,7 +1170,8 @@ def main() -> int:
                     "mpc_collection_env_steps_per_s": mpc_rate,
                     "mpc_settle_launches": mpc_settles,
                     "mpc_walk_min_progress_m": walk_dx,
-                    "tf32_pi_v_max_abs_diff": tf32}), flush=True)
+                    "tf32_pi_v_max_abs_diff": tf32,
+                    "transformer_layer": layer_extra}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

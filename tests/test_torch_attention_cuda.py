@@ -37,10 +37,17 @@ def _weights(D, F, dev, seed=0):
   return att.LayerWeights(*out)
 
 
+# Tile edges of the forward kernel (tiles of G <= 8 samples, G = ceil(B /
+# SMs)): B = 7, 8, 9 around G = 8, and, on a 132-SM card, 1023 (128 tiles,
+# the last with 7 samples) and 1057 (G = 8 capped: 133 tiles, the last
+# with one).
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,D,F", [(1024, 17, 64, 256), (1000, 17, 64, 256),
                                      (8, 17, 64, 256), (1, 17, 64, 256),
-                                     (5, 32, 128, 512), (3, 7, 24, 40)])
+                                     (5, 32, 128, 512), (3, 7, 24, 40),
+                                     (7, 17, 64, 256), (9, 17, 64, 256),
+                                     (1023, 17, 64, 256),
+                                     (1057, 17, 64, 256)])
 def test_kernel_matches_plain(cuda, B, T, D, F):
   w = _weights(D, F, cuda, seed=B)
   x = torch.randn(B, T, D, device=cuda, generator=torch.Generator(
@@ -51,6 +58,24 @@ def test_kernel_matches_plain(cuda, B, T, D, F):
   assert att.fused_transformer_layer.launches == before + 1
   torch.testing.assert_close(got, att.layer_math(x, w), atol=2e-5,
                              rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_saving_mode_same_bits_and_repeatable(cuda):
+  """At the rollout shape: the saving forward's output has the inference
+  forward's bits, and two calls of each give the same bits (no
+  atomics)."""
+  w = _weights(64, 256, cuda, seed=11)
+  x = torch.randn(1024, 17, 64, device=cuda, generator=torch.Generator(
+      device=cuda).manual_seed(11))
+  with torch.no_grad():
+    out = [att.fused_transformer_layer(x, w) for _ in range(2)]
+    saved = [att.fused_layer_forward_saved(x, w) for _ in range(2)]
+  torch.cuda.synchronize()
+  assert torch.equal(out[0], out[1])
+  assert torch.equal(saved[0][0], out[0])
+  assert torch.equal(saved[1][0], out[0])
+  assert all(torch.equal(a, b) for a, b in zip(saved[0][1], saved[1][1]))
 
 
 @pytest.mark.cuda

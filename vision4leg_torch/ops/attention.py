@@ -19,6 +19,7 @@ with nvcc at first use (`ops/nvcc.py`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -26,9 +27,10 @@ import torch
 
 from vision4leg_torch.ops import nvcc
 
-# shapes the kernels take: one sample's layer in shared memory, at most
-# 136 KB forward and 174 KB backward here (csrc tl_smem_floats,
-# tlb_smem_floats), within the 227 KB a block may use
+# shapes the kernels take, within the 227 KB of shared memory a block may
+# use: the forward holds a tile of G samples and two weight panels (208.5
+# KB at T = 17, D = 64 with G = 8; G = 1 at the largest shape, 176 KB: csrc
+# tl_plan), the backward one sample (at most 174 KB: tlb_smem_floats)
 MAX_T, MAX_D, MAX_F = 32, 128, 512
 
 
@@ -73,6 +75,19 @@ class Residuals(NamedTuple):
 def residual_shapes(B: int, T: int, D: int, F: int):
   """Shapes of the residual fields after x, in the buffer's order."""
   return [(B, T, D)] * 7 + [(B, T, F), (B, T, T), (B, T), (B, T)]
+
+
+@functools.lru_cache(maxsize=None)
+def _residual_layout(B: int, T: int, D: int, F: int):
+  """(floats, ((shape, stride, offset), ...)) of the residual fields in
+  one buffer, in its order: the saving forward builds the fields'
+  views with one as_strided each, a host cost that a call pays."""
+  fields, off = [], 0
+  for s in residual_shapes(B, T, D, F):
+    fields.append((s, tuple(math.prod(s[i + 1:]) for i in range(len(s))),
+                   off))
+    off += math.prod(s)
+  return off, tuple(fields)
 
 
 def _normalize(z, eps: float = 1e-6):
@@ -188,6 +203,14 @@ def layer_cost(B: int, T: int, D: int, F: int) -> Tuple[int, int]:
   return nbytes, flops
 
 
+def layer_saved_cost(B: int, T: int, D: int, F: int) -> Tuple[int, int]:
+  """(bytes, operations) of the saving forward (`fused_layer_forward_saved`):
+  `layer_cost` and the residuals written once."""
+  nbytes, flops = layer_cost(B, T, D, F)
+  return nbytes + 4 * sum(math.prod(s) for s in residual_shapes(
+      B, T, D, F)), flops
+
+
 def layer_grad_cost(B: int, T: int, D: int, F: int) -> Tuple[int, int]:
   """(bytes, operations) of the layer's forward and backward together
   (`fused_transformer_layer_ad`): x, the output gradient and the weights
@@ -213,8 +236,21 @@ def build_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.transformer_layer_tile_samples
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
     _LIB["lib"] = lib
   return _LIB["lib"]
+
+
+def tile_samples(B: int, T: int, D: int, F: int) -> int:
+  """Samples of a tile of the forward kernel (G) at this shape on the
+  current card (csrc tl_make_plan)."""
+  G = build_library().transformer_layer_tile_samples(B, T, D, F)
+  if G <= 0:
+    raise RuntimeError(f"transformer_layer_tile_samples failed: cudaError "
+                       f"{-G}")
+  return G
 
 
 def check_inputs(x, w: LayerWeights) -> Tuple[int, int, int, int]:
@@ -260,11 +296,9 @@ def _launch(x, w: LayerWeights, launch=None, save: bool = False):
   out = torch.empty_like(x)
   res = None
   if save:
-    shapes = residual_shapes(B, T, D, F)
-    buf = torch.empty(sum(math.prod(s) for s in shapes),
-                      dtype=torch.float32, device=x.device)
-    res = Residuals(x, *[part.view(s) for part, s in zip(
-        buf.split([math.prod(s) for s in shapes]), shapes)])
+    floats, fields = _residual_layout(B, T, D, F)
+    buf = torch.empty(floats, dtype=torch.float32, device=x.device)
+    res = Residuals(x, *[buf.as_strided(s, st, o) for s, st, o in fields])
   err = launch(x.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in w],
                B, T, D, F, None if res is None else res.q.data_ptr())
   if err != 0:

@@ -108,6 +108,18 @@ def load(name: str) -> ctypes.CDLL:
   return _LOADED[path]
 
 
+def sass_counts(name: str, pattern: str) -> Dict[str, int]:
+  """Lines of each kernel's SASS in the built library of one source that
+  contain `pattern` (e.g. "HMMA": tensor-core instructions), by mangled
+  kernel name, from `cuobjdump --dump-sass` of the toolkit nvcc is in."""
+  cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+  sass = subprocess.run([cuobjdump, "--dump-sass", INFO[name]["path"]],
+                        capture_output=True, text=True, check=True).stdout
+  return {chunk.split()[0]: sum(pattern in line
+                                for line in chunk.splitlines())
+          for chunk in sass.split("Function : ")[1:]}
+
+
 def ptxas_counts(log: str) -> Dict[str, dict]:
   """Registers, stack frame, spills and shared memory of each entry
   function (by its mangled name) from `ptxas -v`'s log."""
