@@ -26,7 +26,9 @@ Phases, each printed with the seconds since start:
      with every kernel's launch count set to 0 just before the rollout
      and read just after;
   5. the transformer-layer kernels against their plain versions at
-     B = 1024, 1000 and 8, on the encoder's tokens of phase 4's
+     B = 1024, 1000, 8 and 512, on the encoder's 17 tokens of phase 4's
+     observations and on random x, and at B = 1024, 512 and 8 on the 16
+     tokens of the vision-only model's encoder (T = 16) of the same
      observations and on random x: the forward against
      `ops/attention.layer_math` (its residual-saving mode must give the
      same bits), what the backward kernel writes against
@@ -58,7 +60,9 @@ Phases, each printed with the seconds since start:
      forward's bound (`layer_saved_cost`: the residuals' bytes), the
      samples each tile takes at each B, the forward's ptxas counts (no
      spills) and its SASS's tensor-core (HMMA) instructions (at least
-     one);
+     one); the forward, forward + backward, plain and library times and
+     the bounds also at (B, T) = (512, 17), (1024, 16), (512, 16) and
+     (8, 16);
   6. the training path: the port's starter pieces build a PPOAgent from
      the same config (1024 envs, full width, fused layer on in
      collection and update), which trains two epochs with an eval after
@@ -66,7 +70,7 @@ Phases, each printed with the seconds since start:
      just before and read just after and held to the exact counts of the
      path (the layer backward: 4 per minibatch, 4 x 48 = 192 an epoch);
      metrics finite, parameters changed, the checkpoint restored into a
-     second agent equal to the first;
+     second agent equal to the first (`phase_training`);
   7. the starter's TF32 setting: `pi_v` on phase 4's observations under
      torch's defaults (cuDNN convolutions in TF32, as the starter runs)
      held against `pi_v` with TF32 off, at TF32_TOL;
@@ -87,8 +91,33 @@ Phases, each printed with the seconds since start:
      tests/test_mpc.py::test_mpc_env_walks_forward): plane, 64 envs,
      action (0.3, 0) for 20 steps; no env done, base z > 0.15 m
      throughout, forward progress > 0.15 m on every env;
- 11. one JSON line with every kernel's numbers, then the last line
-     {"ok": true, "device": {...}}.
+ 11. the PPO update with the fused layer (both kernels) against the
+     unfused update from one state, four minibatches each
+     (`fused_update_check`), held to the float32 ReLU-kink band of
+     tests/test_torch_ppo.py (FUSED_UPDATE_BAND): the LocoTransformer on
+     four rows of 1024 of phase 4's observations, and the MPC model on
+     the first 512 envs of four steps of phase 9's;
+ 12. MPC training (`phase_training` as in phase 6): the port's starter
+     pieces build PPOAgents from config/mpc/locotransformer/thin-goal.json
+     (two epochs) and config/mpc_vision_only/locotransformer/
+     thin-goal.json (one epoch, the vision-only model: the layers at
+     T = 16; its zero-size proprio normalizer's obs_norm_var_max must be
+     0) at 1024 envs, full width, fused layer on; 8-step rollouts, an
+     update of 3 x 8 minibatches of 1024 (the JAX learner takes whole
+     time rows: batch_size 512 // 1024 envs gives one row), an eval of
+     MPC_EVAL_HORIZON steps x 8 envs after each epoch; the window's
+     hybrid launches held to 20 per env step, its settle launches (one a
+     reset) counted apart; the checkpoint, MpcEnvState included,
+     restored equal;
+ 13. one JSON line with every kernel's numbers (launches summed over the
+     paths, with each path's count and the shapes run), then the last
+     line {"ok": true, "device": {...}}.
+
+Cuts of depth: training runs two epochs (thin-goal, MPC) or one
+(vision-only) of the configs' 1500; thin-goal's eval 32 of 999 steps and
+the MPC evals 4 (an MPC step is host-bound at ~0.25-0.5 s); MPC
+collection one 8-step rollout; the MPC walk 20 steps at 64 envs.  Widths
+are the configs' own.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
 below), since outputs are compared; phase 7 turns cuDNN's TF32 on for
@@ -128,41 +157,35 @@ WALK_ENVS, WALK_STEPS = 64, 20
 def actor_critic(env, params, generator=None):
   """The LocoTransformer actor-critic at the config's full width."""
   from vision4leg_torch.models.actor_critic import LocoTransformerActorCritic
-  return LocoTransformerActorCritic(
-      action_dim=env.cfg.action_dim, state_input_shape=env.cfg.proprio_dim,
-      visual_input_shape=(4, 64, 64),
-      encoder_hidden_shapes=tuple(params["encoder"]["hidden_shapes"]),
-      transformer_params=tuple(
-          tuple(p) for p in params["net"]["transformer_params"]),
-      append_hidden_shapes=tuple(params["net"]["append_hidden_shapes"]),
-      generator=generator)
+  from vision4leg_torch.starter.common import locotransformer_kwargs
+  return LocoTransformerActorCritic(**locotransformer_kwargs(env, params),
+                                    generator=generator)
 
 
-def build_main_path(dev):
-  """(env, meta, policy, params) of thin-goal collection on `dev`, read
-  from the unchanged JSON config; policy weights random from seed 0."""
-  import torch
+def build_env(config, dev):
+  """(env, meta, params) of a JSON config of this checkout, unchanged,
+  on `dev`."""
   from vision4leg_torch.envs.get_env import get_env
   root = os.path.dirname(os.path.abspath(__file__))
-  with open(os.path.join(root, CONFIG)) as f:
+  with open(os.path.join(root, config)) as f:
     params = json.load(f)
   env, meta = get_env(params["env_name"], params["env"], device=dev)
+  return env, meta, params
+
+
+def build_main_path(dev, config=CONFIG):
+  """(env, meta, policy, params) of thin-goal collection on `dev` (or of
+  `config`'s), read from the unchanged JSON config; policy weights random
+  from seed 0."""
+  import torch
+  env, meta, params = build_env(config, dev)
   net = actor_critic(env, params, torch.Generator().manual_seed(0))
   return env, meta, net.to(dev).eval(), params
 
 
 def build_mpc_path(dev):
-  """(env, meta, policy, params) of thin-goal MPC collection on `dev`,
-  read from the unchanged JSON config; policy weights random from seed
-  0."""
-  import torch
-  from vision4leg_torch.envs.get_env import get_env
-  root = os.path.dirname(os.path.abspath(__file__))
-  with open(os.path.join(root, MPC_CONFIG)) as f:
-    params = json.load(f)
-  env, meta = get_env(params["env_name"], params["env"], device=dev)
-  net = actor_critic(env, params, torch.Generator().manual_seed(0))
-  return env, meta, net.to(dev).eval(), params
+  """build_main_path of thin-goal MPC collection."""
+  return build_main_path(dev, MPC_CONFIG)
 
 
 def mpc_window_inputs(env, states, actions):
@@ -433,10 +456,25 @@ def time_window(name, args, card, counts, hybrid=False):
 # tolerances of tests/test_pallas.py for the JAX fused layer
 LAYER_FWD_TOL = dict(atol=2e-5, rtol=1e-4)
 LAYER_GRAD_TOL = dict(atol=3e-5, rtol=1e-4)
-LAYER_BATCHES = (1024, 1000, 8)   # rollout/update minibatch, ragged, eval
-EVAL_BATCH = LAYER_BATCHES[-1]    # the eval's envs (common.num_eval_envs)
+# rollout/update minibatch, ragged, eval, and a minibatch of 512 samples
+# (the MPC config's batch_size where it has <= 512 envs)
+LAYER_BATCHES = (1024, 1000, 8, 512)
+EVAL_BATCH = 8                    # the eval's envs (common.num_eval_envs)
+# the vision-only model's 16 tokens (no proprio token)
+VISION_BATCHES = (1024, 512, 8)
+# (B, T) of the layer's timings beside the main shape (1024, 17)
+TIMED_SHAPES = ((512, 17), (1024, 16), (512, 16), (8, 16))
 TRAIN_EPOCHS = 2
 EVAL_HORIZON = 32
+MPC_EPOCHS, VISION_EPOCHS = 2, 1
+# an MPC env step is host-bound at ~0.25-0.5 s on the card: eval cut to
+# 4 steps of its 8 envs
+MPC_EVAL_HORIZON = 4
+VISION_CONFIG = "config/mpc_vision_only/locotransformer/thin-goal.json"
+# the float32 ReLU-kink band of tests/test_torch_ppo.py: two float32
+# updates that put one pre-activation on opposite sides of a kink part by
+# up to 1.5e-4 in the parameters after four minibatches
+FUSED_UPDATE_BAND = 1.5e-4
 
 
 def _close(got, ref, atol, rtol):
@@ -447,9 +485,68 @@ def _close(got, ref, atol, rtol):
   return float(d.max()), bool(torch.all(d <= atol + rtol * ref.abs()))
 
 
-def phase_layer(net, obs, card):
-  """The fused-layer kernel against `layer_math` on the main path's
-  inputs; returns its numbers for the kernels line."""
+def check_layer_case(name, x, w, gen):
+  """The forward kernel against `layer_math` on x (B, T, D), its saving
+  mode's bits, the backward kernel's rows and the end-to-end gradients
+  (`compare_grads_with_plain`); logged with the ReLU mask flips and the
+  forward's samples a tile.  Returns the forward's and the backward
+  rows' largest errors; raises on a disagreement."""
+  import torch
+  from vision4leg_torch.ops import attention as att
+  B, T, D = x.shape
+  with torch.no_grad():
+    got = att.fused_transformer_layer(x, w)
+    ref = att.layer_math(x, w)
+    saved, res = att.fused_layer_forward_saved(x, w)
+  torch.cuda.synchronize()
+  err, ok = _close(got, ref, **LAYER_FWD_TOL)
+  if not torch.equal(saved, got):
+    raise AssertionError(f"the saving forward's output differs from the "
+                         f"inference forward's on {name} at B={B}")
+  g = torch.randn(x.shape, generator=gen, device=x.device)
+  # what the backward kernel writes against its plain version on the
+  # residuals the forward kernel wrote (the same ReLU mask on both sides):
+  # every row gradient and per-sample column sum
+  b_err, b_ok = 0.0, True
+  for a, b in zip(att.fused_layer_backward_rows(res, g, w),
+                  att.layer_backward_rows(res, g, w)):
+    e, o = _close(a, b, **LAYER_GRAD_TOL)
+    b_err, b_ok = max(b_err, e), b_ok and o
+  # end to end: gradients of a weighted sum through both kernels against
+  # autograd of the plain version (module docstring)
+  g_ok, rep = att.compare_grads_with_plain(x, w, g)
+  g_err = max(r["max_abs_err"] for r in rep.values())
+  excused = {k: r["excused"] for k, r in rep.items() if r["excused"]}
+  spread = max(r["f32_spread"] for r in rep.values())
+  # ReLU kinks: FFN pre-activations on the other side of zero in the
+  # kernel's forward than in the plain one
+  with torch.no_grad():
+    _, res_p = att.layer_forward_saved(x, w)
+    h_pre = res_p.y.reshape(-1, w.w1.shape[0]) @ w.w1 + w.b1
+  flips = (res.h.reshape(h_pre.shape) > 0) != (h_pre > 0)
+  G = att.tile_samples(B, T, D, w.w1.shape[1])
+  log(f"transformer_layer vs plain [{name}, B={B} T={T}, {G} samples a "
+      f"tile]: forward max abs "
+      f"err {err:.3e} (saving mode: the same bits); backward kernel vs "
+      f"layer_backward_rows on the same residuals: max abs err "
+      f"{b_err:.3e}; end to end vs autograd of layer_math (x and 16 "
+      f"weights): max abs err {g_err:.3e}, largest plain float32 "
+      f"spread {spread:.3e}, elements within twice the spread only "
+      f"{excused or 0}, failed {sum(r['failed'] for r in rep.values())}"
+      f"; ReLU mask flips kernel vs plain forward "
+      f"{int(flips.sum())} at plain pre-activations "
+      f"{[f'{v:.2e}' for v in h_pre[flips].tolist()]}")
+  if not (ok and b_ok and g_ok):
+    raise AssertionError(f"transformer_layer disagrees with plain on "
+                         f"{name} at B={B} T={T}: {rep}")
+  return err, b_err
+
+
+def phase_layer(net, vision_net, obs, card):
+  """The fused-layer kernels against their plain versions on the main
+  path's inputs: the LocoTransformer's 17 tokens and the vision-only
+  model's 16 of the same observations; returns their numbers for the
+  kernels line."""
   import torch
   from vision4leg_torch.ops import attention as att
   from vision4leg_torch.ops import nvcc
@@ -469,52 +566,24 @@ def phase_layer(net, obs, card):
   max_err, bwd_err = 0.0, 0.0
   for name, (x_all, w) in cases.items():
     for B in LAYER_BATCHES:
-      x = x_all[:B].contiguous()
-      with torch.no_grad():
-        got = att.fused_transformer_layer(x, w)
-        ref = att.layer_math(x, w)
-        saved, res = att.fused_layer_forward_saved(x, w)
-      torch.cuda.synchronize()
-      err, ok = _close(got, ref, **LAYER_FWD_TOL)
-      max_err = max(max_err, err)
-      if not torch.equal(saved, got):
-        raise AssertionError(f"the saving forward's output differs from "
-                             f"the inference forward's on {name} at B={B}")
-      g = torch.randn(x.shape, generator=gen, device=dev)
-      # what the backward kernel writes against its plain version on the
-      # residuals the forward kernel wrote (the same ReLU mask on both
-      # sides): every row gradient and per-sample column sum
-      b_err, b_ok = 0.0, True
-      for a, b in zip(att.fused_layer_backward_rows(res, g, w),
-                      att.layer_backward_rows(res, g, w)):
-        e, o = _close(a, b, **LAYER_GRAD_TOL)
-        b_err, b_ok = max(b_err, e), b_ok and o
-      bwd_err = max(bwd_err, b_err)
-      # end to end: gradients of a weighted sum through both kernels
-      # against autograd of the plain version (module docstring)
-      g_ok, rep = att.compare_grads_with_plain(x, w, g)
-      g_err = max(r["max_abs_err"] for r in rep.values())
-      excused = {k: r["excused"] for k, r in rep.items() if r["excused"]}
-      spread = max(r["f32_spread"] for r in rep.values())
-      # ReLU kinks: FFN pre-activations on the other side of zero in the
-      # kernel's forward than in the plain one
-      with torch.no_grad():
-        _, res_p = att.layer_forward_saved(x, w)
-        h_pre = res_p.y.reshape(-1, w.w1.shape[0]) @ w.w1 + w.b1
-      flips = (res.h.reshape(h_pre.shape) > 0) != (h_pre > 0)
-      log(f"transformer_layer vs plain [{name}, B={B}]: forward max abs "
-          f"err {err:.3e} (saving mode: the same bits); backward kernel vs "
-          f"layer_backward_rows on the same residuals: max abs err "
-          f"{b_err:.3e}; end to end vs autograd of layer_math (x and 16 "
-          f"weights): max abs err {g_err:.3e}, largest plain float32 "
-          f"spread {spread:.3e}, elements within twice the spread only "
-          f"{excused or 0}, failed {sum(r['failed'] for r in rep.values())}"
-          f"; ReLU mask flips kernel vs plain forward "
-          f"{int(flips.sum())} at plain pre-activations "
-          f"{[f'{v:.2e}' for v in h_pre[flips].tolist()]}")
-      if not (ok and b_ok and g_ok):
-        raise AssertionError(f"transformer_layer disagrees with plain on "
-                             f"{name} at B={B}: {rep}")
+      err, b_err = check_layer_case(name, x_all[:B].contiguous(), w, gen)
+      max_err, bwd_err = max(max_err, err), max(bwd_err, b_err)
+  # T = 16: the vision-only model's tokens of the same observations
+  with torch.no_grad():
+    v_tokens = vision_net._tokens(obs)                 # (1024, 16, 64)
+    v0 = att.LayerWeights(*[t.detach() for t in
+                            att.weights_from_layer(vision_net.pf_layers[0])])
+    v1 = att.LayerWeights(*[t.detach() for t in
+                            att.weights_from_layer(vision_net.pf_layers[1])])
+    v_second = att.layer_math(v_tokens, v0)
+  v_noise = torch.randn(v_tokens.shape, generator=gen, device=dev)
+  for name, (x_all, w) in {
+      "vision tokens->pf_layers.0": (v_tokens, v0),
+      "vision layer-1 out->pf_layers.1": (v_second, v1),
+      "randn T=16->pf_layers.0": (v_noise, v0)}.items():
+    for B in VISION_BATCHES:
+      err, b_err = check_layer_case(name, x_all[:B].contiguous(), w, gen)
+      max_err, bwd_err = max(max_err, err), max(bwd_err, b_err)
 
   # two backward calls on the same inputs give the same bits
   x = tokens.clone().requires_grad_(True)
@@ -600,6 +669,13 @@ def phase_layer(net, obs, card):
     bwd_plain_ms = time_ms(lambda: att.layer_backward_math(res, g, w0),
                            n=20)
   del res
+  # the other shapes of the paths: each kernel, its plain version and the
+  # library layer, forward and forward + backward
+  shapes = {}
+  for B_, T_ in TIMED_SHAPES:
+    x_, w_ = ((tokens, w0) if T_ == tokens.shape[1] else (v_tokens, v0))
+    shapes[f"{B_}x{T_}"] = time_layer_shape(x_[:B_].contiguous(), w_, lib,
+                                            gen, card)
   att.fused_transformer_layer.launches, \
       att.fused_transformer_layer_bwd.launches = before
   B, T, D = tokens.shape
@@ -647,44 +723,98 @@ def phase_layer(net, obs, card):
   extra = dict(eval_batch_ms=k8_ms, fp32_bound_ms=fp32_bound_ms,
                saving_forward_ms=save_ms, saving_forward_bound_ms=save_bound_ms,
                tile_samples=tiles, forward_hmma_instructions=hmma,
-               forward_ptxas=fwd_ptx)
+               forward_ptxas=fwd_ptx, shapes=shapes)
   return fwd, bwd, extra
 
 
-def phase_training(env, meta, params, card):
-  """Two thin-goal PPO epochs through the port's starter pieces, fused
-  layer on in collection and update; returns the launch counts of the
-  run and each epoch's numbers."""
+def time_layer_shape(x, w, lib, gen, card):
+  """At x's (B, T): the forward kernel, `layer_math` and the library
+  layer `lib` (its own weights; the time does not depend on them), and
+  forward + backward under autograd of the three, timed with CUDA events;
+  the bounds of `attention.layer_cost` (3xTF32) and `layer_grad_cost`.
+  Logged and returned."""
+  import torch
+  from vision4leg_torch.ops import attention as att
+  B, T, D = x.shape
+  F = w.w1.shape[1]
+  lib.eval()
+  with torch.no_grad():
+    k_ms = time_ms(lambda: att.fused_transformer_layer(x, w))
+    p_ms = time_ms(lambda: att.layer_math(x, w), n=20)
+    l_ms = time_ms(lambda: lib(x), n=20)
+  xi = x.clone().requires_grad_(True)
+  wi = att.LayerWeights(*[t.clone().requires_grad_(True) for t in w])
+  g = torch.randn(x.shape, generator=gen, device=x.device)
+  inputs = [xi, *wi]
+  ad_ms = time_ms(lambda: torch.autograd.grad(
+      att.fused_transformer_layer_ad(xi, wi), inputs, g), n=20)
+  plain_ad_ms = time_ms(lambda: torch.autograd.grad(
+      att.layer_math(xi, wi), inputs, g), n=20)
+  lib.train()
+  lib_ad_ms = time_ms(lambda: torch.autograd.grad(
+      lib(xi), [xi, *lib.parameters()], g), n=20)
+  lib.eval()
+  nbytes, flops = att.layer_cost(B, T, D, F)
+  bound = max(nbytes / 3.35e12, 3 * flops / 495e12) * 1e3
+  g_bytes, g_flops = att.layer_grad_cost(B, T, D, F)
+  g_bound = max(g_bytes / 3.35e12, g_flops / 67e12) * 1e3
+  G = att.tile_samples(B, T, D, F)
+  log(f"transformer_layer at B={B} T={T} on {card} ({G} samples a tile): "
+      f"forward kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+      f"torch.nn.TransformerEncoderLayer {l_ms:.4f} ms, bound "
+      f"{bound * 1e3:.3f} us (3xTF32); forward + backward "
+      f"(fused_transformer_layer_ad) {ad_ms:.4f} ms, plain autograd "
+      f"{plain_ad_ms:.4f} ms, library autograd {lib_ad_ms:.4f} ms, bound "
+      f"{g_bound * 1e3:.3f} us")
+  return dict(tile_samples=G, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+              bound_ms=bound, ad_ms=ad_ms, plain_ad_ms=plain_ad_ms,
+              library_ad_ms=lib_ad_ms, ad_bound_ms=g_bound)
+
+
+def phase_training(label, env, meta, params, build_module, epochs,
+                   eval_horizon, card):
+  """`epochs` PPO epochs of `params`' config through the port's starter
+  pieces (`build_module` of a starter), fused layer on in collection and
+  update, an eval of eval_horizon steps after each; the launch counts set
+  to 0 just before and read just after, held to the path's exact counts;
+  metrics finite, parameters changed, the checkpoint restored into a
+  second agent equal to the first.  On the MPC env the window runs
+  policy_freq hybrid launches a step, and each reset (the rollout's
+  partial resets, the eval's) one settle launch, counted apart.  Returns
+  the launch counts and each epoch's numbers."""
   import csv
 
   import torch
   from vision4leg_torch.algo.agent import PPOAgent, _flatten
+  from vision4leg_torch.algo.on_policy_base import minibatches
+  from vision4leg_torch.envs.mpc_env import A1MPCGymEnv
   from vision4leg_torch.ops import attention as att
   from vision4leg_torch.ops import physics_kernel as pk
   from vision4leg_torch.starter import common
-  from vision4leg_torch.starter.ppo_locotransformer import build_module
   from vision4leg_torch.utils.logger import Logger
-  cfg = common.ppo_config(params, num_epochs=TRAIN_EPOCHS)
+  cfg = common.ppo_config(params, num_epochs=epochs)
   n_eval = common.num_eval_envs(params)
+  mpc = isinstance(env, A1MPCGymEnv)
 
   def agent(seed, logger):
     return PPOAgent(
         env=env, ac_module=build_module(env, params), cfg=cfg,
         num_envs=NUM_ENVS, seed=seed, logger=logger,
         save_dir=os.path.join(logger.work_dir, "model"), eval_interval=1,
-        save_interval=TRAIN_EPOCHS, num_eval_envs=n_eval,
+        save_interval=epochs, num_eval_envs=n_eval,
         obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"],
         reward_scale=meta["reward_scale"], fused_attention=True,
-        fused_update=True, eval_horizon=EVAL_HORIZON, device=env.device)
+        fused_update=True, eval_horizon=eval_horizon, device=env.device)
 
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
     logger = Logger("chip_smoke", params["env_name"], 0, params, tmp)
     t = time.perf_counter()
     a = agent(0, logger)
     torch.cuda.synchronize()
-    log(f"PPOAgent at {NUM_ENVS} envs (init + init_collector): "
+    log(f"[{label}] PPOAgent at {NUM_ENVS} envs (init + init_collector): "
         f"{time.perf_counter() - t:.2f}s")
     init = {k: v.clone() for k, v in a.module.state_dict().items()}
+    settles = env.settle_windows if mpc else 0
     pk.robot_window.launches = 0
     att.fused_transformer_layer.launches = 0
     att.fused_transformer_layer_bwd.launches = 0
@@ -692,63 +822,77 @@ def phase_training(env, meta, params, card):
     a.train()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
-    launches = {"physics_window": pk.robot_window.launches,
+    settles = (env.settle_windows - settles) if mpc else 0
+    launches = {"physics_window": pk.robot_window.launches - settles,
+                "physics_window_settle": settles,
                 "transformer_layer": att.fused_transformer_layer.launches,
                 "transformer_layer_bwd":
                     att.fused_transformer_layer_bwd.launches}
     horizon = a.horizon
-    n_mb = cfg.opt_epochs * (cfg.epoch_frames // cfg.batch_size)
-    per_epoch_layer = (4 * horizon + 2 + 4 * n_mb) + 2 * EVAL_HORIZON
-    want = {"physics_window": TRAIN_EPOCHS * (horizon + EVAL_HORIZON),
-            "transformer_layer": TRAIN_EPOCHS * per_epoch_layer,
-            "transformer_layer_bwd": TRAIN_EPOCHS * 4 * n_mb}
-    log(f"trained {TRAIN_EPOCHS} epochs in {dt:.2f}s; launches {launches}, "
-        f"expected {want} (per epoch: window {horizon} + {EVAL_HORIZON} "
-        f"eval; layer 4 x {horizon} pi_v + 2 last value + 4 x {n_mb} "
-        f"update at B={NUM_ENVS} (saving mode), 2 x {EVAL_HORIZON} eval at "
-        f"B={n_eval}; layer backward 4 x {n_mb} update)")
-    if launches != want:
-      raise AssertionError(f"launch counts {launches} != {want}")
+    rows, n_batches = minibatches(cfg, horizon, NUM_ENVS)
+    n_mb, mb = cfg.opt_epochs * n_batches, rows * NUM_ENVS
+    per_step = env.cfg.policy_freq if mpc else 1
+    per_epoch_layer = (4 * horizon + 2 + 4 * n_mb) + 2 * eval_horizon
+    want = {"physics_window": epochs * (horizon + eval_horizon) * per_step,
+            "physics_window_settle": settles,
+            "transformer_layer": epochs * per_epoch_layer,
+            "transformer_layer_bwd": epochs * 4 * n_mb}
+    log(f"[{label}] trained {epochs} epochs in {dt:.2f}s; launches "
+        f"{launches}, expected {want} (per epoch: window ({horizon} + "
+        f"{eval_horizon} eval) steps x {per_step}"
+        + (f" hybrid, the settles of the rollout's partial resets and the "
+           f"eval's reset counted apart" if mpc else "")
+        + f"; layer 4 x {horizon} pi_v + 2 last value + 4 x {n_mb} update "
+        f"at B={mb} (saving mode), 2 x {eval_horizon} eval at B={n_eval}; "
+        f"layer backward 4 x {n_mb} update at B={mb})")
+    if launches != want or (mpc and settles < epochs):
+      raise AssertionError(f"[{label}] launch counts {launches} != {want}")
 
     with open(logger.csv_file_path, newline="") as f:
-      rows = list(csv.DictReader(f))
-    if len(rows) != TRAIN_EPOCHS:
-      raise AssertionError(f"{len(rows)} log rows")
-    epochs = []
-    for r in rows:
+      rows_ = list(csv.DictReader(f))
+    if len(rows_) != epochs:
+      raise AssertionError(f"[{label}] {len(rows_)} log rows")
+    epoch_rows = []
+    for r in rows_:
       vals = {k: float(v) for k, v in r.items() if v not in ("", None)}
       bad = [k for k, v in vals.items() if not math.isfinite(v)]
       if bad or vals["diagnostics/nonfinite_obs"] != 0:
-        raise AssertionError(f"non-finite metrics {bad}")
+        raise AssertionError(f"[{label}] non-finite metrics {bad}")
       for k in ("Training/policy_loss", "Training/vf_loss",
                 "Eval_Rewards_Average"):
         if k not in vals:
-          raise AssertionError(f"{k} missing from the log")
+          raise AssertionError(f"[{label}] {k} missing from the log")
+      if env.cfg.proprio_dim == 0 and \
+         vals["diagnostics/obs_norm_var_max"] != 0:
+        raise AssertionError(f"[{label}] obs_norm_var_max on a zero-size "
+                             "normalizer is not 0")
       rate = cfg.epoch_frames / vals["Train___Time"]
-      epochs.append(dict(
+      epoch_rows.append(dict(
           epoch=int(vals["EPOCH"]), collect_s=vals["Explore_Time"],
           update_s=vals["Update_Time"], eval_s=vals["Eval____Time"],
           env_steps_per_s=rate, vf_loss=vals["Training/vf_loss"],
           policy_loss=vals["Training/policy_loss"],
-          eval_return=vals["Eval_Rewards_Average"]))
-      log(f"epoch {epochs[-1]['epoch']} on {card}: collection "
-          f"{vals['Explore_Time']:.3f}s, update ({n_mb} minibatches) "
-          f"{vals['Update_Time']:.3f}s, eval ({EVAL_HORIZON} steps x "
-          f"{n_eval} envs) {vals['Eval____Time']:.3f}s; "
-          f"{cfg.epoch_frames} env-steps / {vals['Train___Time']:.3f}s "
-          f"(collection + update) = {rate:.1f} env-steps/s; vf_loss "
-          f"{vals['Training/vf_loss']:.4f}, policy_loss "
-          f"{vals['Training/policy_loss']:.5f}, eval return "
-          f"{vals['Eval_Rewards_Average']:.3f}")
+          eval_return=vals["Eval_Rewards_Average"],
+          obs_norm_var_max=vals["diagnostics/obs_norm_var_max"]))
+      log(f"[{label}] epoch {epoch_rows[-1]['epoch']} on {card}: "
+          f"collection {vals['Explore_Time']:.3f}s, update ({n_mb} "
+          f"minibatches of {mb}) {vals['Update_Time']:.3f}s, eval "
+          f"({eval_horizon} steps x {n_eval} envs) "
+          f"{vals['Eval____Time']:.3f}s; {cfg.epoch_frames} env-steps / "
+          f"{vals['Train___Time']:.3f}s (collection + update) = "
+          f"{rate:.1f} env-steps/s; vf_loss {vals['Training/vf_loss']:.4f}"
+          f", policy_loss {vals['Training/policy_loss']:.5f}, eval return "
+          f"{vals['Eval_Rewards_Average']:.3f}, obs_norm_var_max "
+          f"{vals['diagnostics/obs_norm_var_max']:.4g}")
     changed = sum(not torch.equal(v, init[k])
                   for k, v in a.module.state_dict().items())
     if changed != len(init):
-      raise AssertionError(f"only {changed} of {len(init)} parameter "
-                           "tensors changed")
+      raise AssertionError(f"[{label}] only {changed} of {len(init)} "
+                           "parameter tensors changed")
 
     # the checkpoint after the last epoch, restored into a second agent
     b = agent(1, logger)
-    if b.restore_checkpoint() != TRAIN_EPOCHS:
+    if b.restore_checkpoint() != epochs:
       raise AssertionError("restore_checkpoint returned another epoch")
 
     def state(x):
@@ -764,11 +908,95 @@ def phase_training(env, meta, params, card):
     (sa, ca), (sb, cb) = state(a), state(b)
     diff = [k for k in sa if not torch.equal(sa[k], sb[k])]
     if diff or ca != cb or set(sa) != set(sb):
-      raise AssertionError(f"restored state differs: {diff[:5]} {ca} {cb}")
-    log(f"checkpoint restored into a second agent: {len(sa)} tensors "
-        f"(params, both Adam states, collector) equal; counts {cb}")
-  launches["epochs"] = epochs
+      raise AssertionError(f"[{label}] restored state differs: {diff[:5]} "
+                           f"{ca} {cb}")
+    log(f"[{label}] checkpoint restored into a second agent: {len(sa)} "
+        f"tensors (params, both Adam states, collector with the env "
+        f"states) equal; counts {cb}")
+  launches["epochs"] = epoch_rows
+  launches["minibatch"] = mb
   return launches
+
+
+def fused_update_check(net, obs, params, seed=0):
+  """Four PPO minibatches of B samples, the rows of obs (4, B, D), with
+  the fused layer in the update (the forward and backward kernels on the
+  card) and without it, from the same module state and trajectory: the
+  actions drawn from the policy, behaviour log-probs moved off it so that
+  the ratio clips, seeded rewards; PPO settings of `params`' config with
+  batch_size B, one opt epoch, rows in order.  Returns (largest |fused -
+  unfused| over the parameters, largest parameter movement of the
+  unfused update, the update metrics' largest difference)."""
+  import copy
+  import dataclasses
+
+  import torch
+  from vision4leg_torch.algo.on_policy_base import normal_log_prob
+  from vision4leg_torch.algo.ppo import PPOLearner
+  from vision4leg_torch.collector.rollout import Transition
+  from vision4leg_torch.starter import common
+  T, B = obs.shape[:2]
+  dev = obs.device
+  cfg = dataclasses.replace(common.ppo_config(params), batch_size=B,
+                            epoch_frames=T * B, opt_epochs=1, shuffle=False)
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+  with torch.no_grad():
+    (mean, std, _), value = net.pi_v(obs.reshape(T * B, -1))
+  acts = mean + std * rnd(*mean.shape)
+  logp = normal_log_prob(mean, std, acts) + 0.3 * (
+      2 * torch.rand(T * B, 1, generator=gen, device=dev) - 1)
+  split = lambda t: t.reshape(T, B, -1)
+  no = torch.zeros(T, B, 1, dtype=torch.bool, device=dev)
+  traj = Transition(obs=obs, acts=split(acts), log_probs=split(logp),
+                    values=split(value), rewards=0.1 * rnd(T, B, 1),
+                    terminals=no, time_limits=no, means=split(mean),
+                    stds=split(std))
+  out = {}
+  for fused in (False, True):
+    m = copy.deepcopy(net).train()
+    learner = PPOLearner(cfg, lambda mm, x, f=fused: mm.pi(x, fused=f),
+                         lambda mm, x, f=fused: mm.v(x, fused=f), m)
+    _, metrics = learner.update_per_epoch(
+        learner.init_state(m), traj, torch.zeros(B, device=dev),
+        perms=[list(range(T))])
+    out[fused] = ({k: v.detach() for k, v in m.state_dict().items()},
+                  {k: float(v) for k, v in metrics.items()})
+  init = net.state_dict()
+  diff = max(float((out[True][0][k] - v).abs().max())
+             for k, v in out[False][0].items())
+  moved = max(float((v - init[k]).abs().max())
+              for k, v in out[False][0].items())
+  m_diff = max(abs(out[True][1][k] - v) for k, v in out[False][1].items())
+  return diff, moved, m_diff
+
+
+def phase_fused_update(label, net, obs, params, card):
+  """`fused_update_check` on the card, held to FUSED_UPDATE_BAND; the
+  launches it makes are comparisons and leave the counts as they were."""
+  from vision4leg_torch.ops import attention as att
+  before = (att.fused_transformer_layer.launches,
+            att.fused_transformer_layer_bwd.launches)
+  t = time.perf_counter()
+  diff, moved, m_diff = fused_update_check(net, obs, params)
+  bwd = att.fused_transformer_layer_bwd.launches - before[1]
+  att.fused_transformer_layer.launches, \
+      att.fused_transformer_layer_bwd.launches = before
+  T, B = obs.shape[:2]
+  log(f"[{label}] fused PPO update vs unfused on {card}: {T} minibatches "
+      f"of B={B}, from one state; largest parameter difference "
+      f"{diff:.3e} (band {FUSED_UPDATE_BAND:g}; the unfused update moved "
+      f"the parameters by up to {moved:.3e}); largest metric difference "
+      f"{m_diff:.3e}; {bwd} backward launches; "
+      f"{time.perf_counter() - t:.2f}s")
+  if bwd != 4 * T:
+    raise AssertionError(f"[{label}] the fused update launched the layer "
+                         f"backward {bwd} times, expected {4 * T}")
+  if not diff <= FUSED_UPDATE_BAND:
+    raise AssertionError(f"[{label}] fused update parts from the unfused "
+                         f"one by {diff:.3e} > {FUSED_UPDATE_BAND:g}")
+  return dict(batch=B, max_param_diff=diff, max_param_move=moved,
+              max_metric_diff=m_diff)
 
 
 def log_window_report(name, args, rep, counts):
@@ -902,7 +1130,8 @@ def phase_hybrid(mpc_env, thin_env, card):
 
 def phase_mpc_collection(card, dev):
   """One thin-goal MPC rollout at NUM_ENVS envs through the collector;
-  returns (hybrid launches, env-steps/s, settle launches)."""
+  returns (hybrid launches, env-steps/s, settle launches, the policy, the
+  first 512 envs' observations of its first 4 steps, the config)."""
   import torch
   from vision4leg_torch.collector import rollout as rollout_lib
   from vision4leg_torch.ops import attention as att
@@ -944,7 +1173,8 @@ def phase_mpc_collection(card, dev):
     raise AssertionError(f"MPC obs shape {tuple(traj.obs.shape)}")
   log(f"MPC outputs finite; terminals {int(traj.terminals.sum())}; mean "
       f"reward {float(traj.rewards.mean()):.4f}")
-  return hybrid, rate, settle_launches
+  return (hybrid, rate, settle_launches, net, traj.obs[:4, :512].clone(),
+          params)
 
 
 def phase_walk(card, dev):
@@ -987,9 +1217,15 @@ def main() -> int:
     return 2
 
   from vision4leg_torch.collector import rollout as rollout_lib
+  from vision4leg_torch.models.actor_critic import \
+      VisionOnlyTransformerActorCritic
   from vision4leg_torch.ops import attention as att
   from vision4leg_torch.ops import nvcc
   from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import ppo_locotransformer as starter
+  from vision4leg_torch.starter import \
+      ppo_locotransformer_vision_only as vo_starter
+  from vision4leg_torch.starter.common import locotransformer_kwargs
 
   # outputs below are compared against references: no TF32 anywhere
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -1115,15 +1351,26 @@ def main() -> int:
       f"terminals {int(traj.terminals.sum())}; mean reward "
       f"{float(traj.rewards.mean()):.4f}")
 
-  # --- 5. the transformer-layer kernel against its plain version --------
-  layer, layer_bwd, layer_extra = phase_layer(net, traj.obs[0], card)
+  # --- 5. the transformer-layer kernels against their plain versions -----
+  vision_net = VisionOnlyTransformerActorCritic(**locotransformer_kwargs(
+      env, params), generator=torch.Generator().manual_seed(0)).to(dev)
+  layer, layer_bwd, layer_extra = phase_layer(net, vision_net, traj.obs[0],
+                                              card)
   tf32_obs = traj.obs[0].clone()
-  del cs, traj, last_v
+  update_obs = traj.obs[:4].clone()
+  del cs, traj, last_v, vision_net
   torch.cuda.empty_cache()
 
   # --- 6. the training path ------------------------------------------------
-  launches = phase_training(env, meta, params, card)
+  paths = {"thin-goal training": phase_training(
+      "thin-goal", env, meta, params, starter.build_module, TRAIN_EPOCHS,
+      EVAL_HORIZON, card)}
   torch.cuda.empty_cache()
+
+  # --- 11. the fused PPO update against the unfused one (B = 1024) -------
+  fused_update = [phase_fused_update("thin-goal", net, update_obs, params,
+                                     card)]
+  del update_obs
 
   # --- 7. the starter's TF32 convolutions -----------------------------------
   tf32 = phase_tf32(net, tf32_obs)
@@ -1136,40 +1383,93 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   # --- 9. MPC collection ----------------------------------------------------
-  mpc_launches, mpc_rate, mpc_settles = phase_mpc_collection(card, dev)
+  (mpc_launches, mpc_rate, mpc_settles, mpc_net, mpc_obs,
+   mpc_params) = phase_mpc_collection(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 11. the fused PPO update against the unfused one (B = 512) --------
+  fused_update.append(phase_fused_update("MPC", mpc_net, mpc_obs,
+                                         mpc_params, card))
+  del mpc_net, mpc_obs
   torch.cuda.empty_cache()
 
   # --- 10. the MPC controller walks ----------------------------------------
   walk_dx = phase_walk(card, dev)
 
-  # --- 11. results ----------------------------------------------------------
+  # --- 12. MPC training, proprio and vision-only ----------------------------
+  mpc_env, mpc_meta, _ = build_env(MPC_CONFIG, dev)
+  paths["MPC training"] = phase_training(
+      "MPC", mpc_env, mpc_meta, mpc_params, starter.build_module,
+      MPC_EPOCHS, MPC_EVAL_HORIZON, card)
+  del mpc_env
+  torch.cuda.empty_cache()
+  vo_env, vo_meta, vo_params = build_env(VISION_CONFIG, dev)
+  paths["vision-only MPC training"] = phase_training(
+      "vision-only MPC", vo_env, vo_meta, vo_params,
+      vo_starter.build_module, VISION_EPOCHS, MPC_EVAL_HORIZON, card)
+  del vo_env
+  torch.cuda.empty_cache()
+
+  # --- 13. results ----------------------------------------------------------
+  # launches: the sum over the paths that run a kernel, each read just
+  # after it was driven with the counts at 0 (by path beside it)
+  by_path = {k: {n: v[n] for n in ("physics_window", "physics_window_settle",
+                                   "transformer_layer",
+                                   "transformer_layer_bwd")}
+             for k, v in paths.items()}
+  by_path["MPC collection"] = {"physics_window": mpc_launches,
+                               "physics_window_settle": mpc_settles}
+  total = lambda name: sum(v.get(name, 0) for v in by_path.values())
+  row1_paths = {k: v["physics_window"] for k, v in by_path.items()
+                if "MPC" not in k}
+  row1_paths.update({k: v["physics_window_settle"]
+                     for k, v in by_path.items() if "MPC" in k})
+  row1h_paths = {k: v["physics_window"] for k, v in by_path.items()
+                 if "MPC" in k}
+  layer_paths = lambda name: {k: v[name] for k, v in by_path.items()
+                              if name in v}
+  minibatch = {k: v["minibatch"] for k, v in paths.items()}
   kernels = [dict(
       name="physics_window", route="cuda",
       source="vision4leg_torch/ops/csrc/physics_window.cu",
       replaces="vision4leg_tpu/ops/physics_kernel.py:122",
-      launches=launches["physics_window"], max_abs_err=max_err,
-      **window), dict(
+      launches=sum(row1_paths.values()), launches_by_path=row1_paths,
+      shapes="16 substeps at 1024 envs (thin-goal collection) and 8 "
+             "(eval); the MPC resets' settles of settle_steps substeps at "
+             "1024 envs, the partial resets' envs and 8 (eval)",
+      max_abs_err=max_err, **window), dict(
       name="transformer_layer", route="cuda",
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
       replaces="vision4leg_tpu/ops/attention.py:116",
-      launches=launches["transformer_layer"], **layer), dict(
+      launches=total("transformer_layer"),
+      launches_by_path=layer_paths("transformer_layer"),
+      shapes=f"(B, T, 64), F 256: T 17 at B 1024, 8 (eval) and the "
+             f"update's minibatch {minibatch}; T 16 (vision-only) at the "
+             f"same; checked also at B 1000 and 512 (T 17), 512 (T 16)",
+      **layer), dict(
       name="transformer_layer_bwd", route="cuda",
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
       replaces="vision4leg_tpu/ops/attention.py:149 (_ad_bwd :178)",
-      launches=launches["transformer_layer_bwd"], **layer_bwd), dict(
+      launches=total("transformer_layer_bwd"),
+      launches_by_path=layer_paths("transformer_layer_bwd"),
+      shapes=f"the update's minibatch {minibatch} at T 17 and 16; checked "
+             f"also at B 1000, 512 and 8",
+      **layer_bwd), dict(
       name="physics_window_hybrid", route="cuda",
       source="vision4leg_torch/ops/csrc/physics_window.cu",
       replaces="vision4leg_tpu/ops/physics_kernel.py:122 (hybrid mode, "
                ":125-136)",
-      launches=mpc_launches, **hybrid)]
+      launches=sum(row1h_paths.values()), launches_by_path=row1h_paths,
+      shapes="5 substeps at 1024 envs (collection) and 8 (eval)",
+      **hybrid)]
   print(json.dumps({"kernels": kernels, "card": card,
                     "window_ms": {"rollout": window_ms,
                                   "hybrid": hybrid_ms},
                     "collection_env_steps_per_s": horizon * num_envs / dt,
-                    "training": launches["epochs"],
+                    "training": {k: v["epochs"] for k, v in paths.items()},
                     "mpc_collection_env_steps_per_s": mpc_rate,
-                    "mpc_settle_launches": mpc_settles,
                     "mpc_walk_min_progress_m": walk_dx,
+                    "fused_update": fused_update,
                     "tf32_pi_v_max_abs_diff": tf32,
                     "transformer_layer": layer_extra}), flush=True)
   print(json.dumps({"ok": True, "device": {

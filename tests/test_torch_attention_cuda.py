@@ -40,14 +40,17 @@ def _weights(D, F, dev, seed=0):
 # Tile edges of the forward kernel (tiles of G <= 8 samples, G = ceil(B /
 # SMs)): B = 7, 8, 9 around G = 8, and, on a 132-SM card, 1023 (128 tiles,
 # the last with 7 samples) and 1057 (G = 8 capped: 133 tiles, the last
-# with one).
+# with one).  The training paths' other shapes: B = 512 (G = 4), and the
+# vision-only model's T = 16 (128 rows a tile of 8, padded to 144).
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,D,F", [(1024, 17, 64, 256), (1000, 17, 64, 256),
                                      (8, 17, 64, 256), (1, 17, 64, 256),
                                      (5, 32, 128, 512), (3, 7, 24, 40),
                                      (7, 17, 64, 256), (9, 17, 64, 256),
                                      (1023, 17, 64, 256),
-                                     (1057, 17, 64, 256)])
+                                     (1057, 17, 64, 256),
+                                     (512, 17, 64, 256), (512, 16, 64, 256),
+                                     (1024, 16, 64, 256), (8, 16, 64, 256)])
 def test_kernel_matches_plain(cuda, B, T, D, F):
   w = _weights(D, F, cuda, seed=B)
   x = torch.randn(B, T, D, device=cuda, generator=torch.Generator(
@@ -108,7 +111,9 @@ def test_kernel_rejects_bad_inputs(cuda):
 
 
 BWD_SHAPES = [(1024, 17, 64, 256), (1000, 17, 64, 256), (8, 17, 64, 256),
-              (1, 17, 64, 256), (5, 32, 128, 512), (3, 7, 24, 40)]
+              (1, 17, 64, 256), (5, 32, 128, 512), (3, 7, 24, 40),
+              (512, 17, 64, 256), (512, 16, 64, 256), (1024, 16, 64, 256),
+              (8, 16, 64, 256)]
 
 
 @pytest.mark.cuda
@@ -138,6 +143,30 @@ def test_backward_kernel_matches_plain(cuda, B, T, D, F):
     torch.testing.assert_close(a, b, atol=3e-5, rtol=1e-4, msg=name)
   grads = att.weight_grads(res, rows)
   assert all(torch.equal(a, b) for a, b in zip(got, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1000, 1024])
+def test_backward_key_bias_sum_is_exact(cuda, B):
+  """The backward kernel's key-bias sums (csrc tlb_phase 12: from the
+  softmax's shift invariance, the row sums of P in double) against the
+  float64 sums of dk's rows computed from the kernel's own residuals.
+  Summed from dk's float32 rows, they were rounding noise up to 3.9e-05
+  from the float64 autograd at B = 1000 on a card, more than twice the
+  plain layer's float32 spread (chip_smoke.py phase 5)."""
+  w = _weights(64, 256, cuda, seed=B + 2)
+  gen = torch.Generator(device=cuda).manual_seed(B + 2)
+  x = torch.randn(B, 17, 64, device=cuda, generator=gen)
+  g = torch.randn(B, 17, 64, device=cuda, generator=gen)
+  _, res = att.fused_layer_forward_saved(x, w)
+  rows = att.fused_layer_backward_rows(res, g, w)
+  torch.cuda.synchronize()
+  d = lambda t: t.double()
+  rows64 = att.layer_backward_rows(att.Residuals(*map(d, res)), d(g),
+                                   att.LayerWeights(*map(d, w)))
+  ref = rows64.dqkv[..., 64:128].sum(1)
+  torch.testing.assert_close(rows.sums[:, 64:128].double(), ref, atol=1e-9,
+                             rtol=0)
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ for n in names:
   importlib.import_module(n)
 for n in ("vision4leg_torch.algo.agent",
           "vision4leg_torch.starter.ppo_locotransformer",
+          "vision4leg_torch.starter.ppo_locotransformer_vision_only",
           "vision4leg_torch.ops.attention",
           "vision4leg_torch.envs.mpc_env",
           "vision4leg_torch.mpc.convex_mpc",

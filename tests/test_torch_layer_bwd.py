@@ -172,3 +172,24 @@ def test_gradient_comparison_holds_the_cpu_path_and_catches_faults():
     return out
   ok, _ = att.compare_grads_with_plain(x, w, g, run=shifted)
   assert not ok
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_key_bias_sum_is_the_exact_sum_of_dk_rows(seed):
+  """The key bias's gradient, sum over dk's rows, is taken from the
+  softmax's shift invariance (`layer_backward_rows`, as the backward
+  kernel takes it): in float32 it equals the float64 sum of the rows of
+  dk computed from the same float32 residuals, where summing dk's
+  float32 rows leaves rounding noise larger than the sum itself."""
+  x, w, g, _ = _case(64, 17, 64, 256, torch.float32, seed=seed)
+  D = 64
+  _, res = att.layer_forward_saved(x, w)
+  rows = att.layer_backward_rows(res, g, w)
+  d = lambda t: t.double()
+  rows64 = att.layer_backward_rows(att.Residuals(*map(d, res)), d(g),
+                                   att.LayerWeights(*map(d, w)))
+  ref = rows64.dqkv[..., D:2 * D].sum(1)
+  np.testing.assert_allclose(rows.sums[:, D:2 * D].double().numpy(),
+                             ref.numpy(), atol=1e-12, rtol=0)
+  naive = rows.dqkv[..., D:2 * D].sum(1).double()
+  assert float((naive - ref).abs().max()) > 100 * 1e-12

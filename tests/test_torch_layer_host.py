@@ -183,10 +183,12 @@ def _case(B, T, D, F):
   return x, _weights(rng, D, F)
 
 
-# (9, 17, 64, 256): two tiles of G = 8 samples, the second with one
+# (9, 17, 64, 256): two tiles of G = 8 samples, the second with one; (9,
+# 16, 64, 256) the same at the vision-only model's 16 tokens
 @pytest.mark.parametrize("B,T,D,F", [(3, 17, 64, 256), (2, 5, 16, 40),
                                      (1, 1, 8, 8), (2, 32, 128, 512),
-                                     (2, 18, 33, 70), (9, 17, 64, 256)])
+                                     (2, 18, 33, 70), (9, 17, 64, 256),
+                                     (9, 16, 64, 256)])
 def test_layer_source_matches_plain_on_host(host_launch, B, T, D, F):
   x, w = _case(B, T, D, F)
   before = att.fused_transformer_layer.launches

@@ -178,7 +178,8 @@ def test_settle_matches_jax_over_its_first_substeps():
 
 
 # ---------------------------------------------------------------------------
-# the env through the port's collector, and what it refuses
+# the env through the port's collector and the agent, and what the agent
+# refuses
 # ---------------------------------------------------------------------------
 
 def test_get_env_reads_the_mpc_config():
@@ -224,15 +225,43 @@ def test_collection_runs_through_the_rollout_fn():
   assert float(cs.normalizer.count) > E
 
 
-def test_agent_refuses_the_mpc_env(tmp_path):
+def _agent_on_mpc_env(tmp_path, env=None, **kw):
   from vision4leg_torch.algo.agent import PPOAgent
   from vision4leg_torch.algo.ppo import PPOConfig
-  with open(CONFIG) as f:
-    params = json.load(f)
-  env, _ = torch_get_env(params["env_name"], params["env"], device="cpu")
-  with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-    PPOAgent(env=env, ac_module=None, cfg=PPOConfig(), num_envs=4, seed=0,
-             logger=None, save_dir=str(tmp_path), device="cpu")
+  if env is None:
+    env, _ = torch_get_env(_params(policy_freq=2)["env_name"],
+                           _params(policy_freq=2)["env"], device="cpu")
+    env.cfg = dataclasses.replace(env.cfg, settle_steps=20)
+  net = LocoTransformerActorCritic(
+      action_dim=2, state_input_shape=PROPRIO, encoder_hidden_shapes=(16,),
+      transformer_params=((1, 32),), append_hidden_shapes=(16,),
+      token_dim=16)
+  return PPOAgent(env=env, ac_module=net, cfg=PPOConfig(epoch_frames=128),
+                  num_envs=2, seed=0, logger=None, save_dir=str(tmp_path),
+                  device="cpu", **kw)
+
+
+def test_agent_builds_on_the_mpc_env(tmp_path):
+  agent = _agent_on_mpc_env(tmp_path)
+  cs = agent.collector_state
+  assert isinstance(cs.env_states, tmpc_env.MpcEnvState)
+  assert cs.raw_obs.shape == (2, PROPRIO + 4 * 64 * 64)
+  assert agent.horizon == 64 and agent.env.settle_windows == 1
+
+
+@pytest.mark.parametrize("option", ["inference_dtype", "mesh", "eval_env",
+                                    "curriculum"])
+def test_agent_refuses_unported_options_on_the_mpc_env(tmp_path, option):
+  """The options the port does not run stay refused on the MPC env."""
+  if option == "curriculum":
+    env, _ = torch_get_env(_params()["env_name"], _params()["env"],
+                           device="cpu")
+    env.cfg = dataclasses.replace(env.cfg, curriculum=True)
+    kw = dict(env=env)
+  else:
+    kw = {option: object()}
+  with pytest.raises(NotImplementedError, match="queue 1 item"):
+    _agent_on_mpc_env(tmp_path, **kw)
 
 
 def test_env_walks_forward_on_plane():

@@ -12,6 +12,13 @@ largest shape, T = 32, D = 128, F = 512) and times both functions at B =
 1024 with CUDA events (25 calls issued back to back after 3).  Prints
 whether the two checkouts' forwards give the same bits on every input,
 and the times of each turn, with the card's name and power limit.
+
+Each turn also profiles forward + backward at T = 17 and B = 1024 and 512
+(torch.profiler, 20 calls after 3): the device time a call of the saving
+forward kernel, the backward kernel, the weight products (GEMMs) and the
+other small kernels (transposes, sums, copies) takes on the device
+timeline, their sum against the call's time with CUDA events (the card's
+busy share), and the host's time to issue a call.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((1024, 17, 64, 256), (1000, 17, 64, 256), (8, 17, 64, 256),
           (5, 32, 128, 512))
+PROFILE_BATCHES = (1024, 512)
 
 
 def _inputs(B, T, D, F, dev):
@@ -75,7 +83,56 @@ def dump(out_path: str) -> None:
     fwd_ms = time_ms(lambda: att.fused_transformer_layer(x, wi))
   ad_ms = time_ms(lambda: torch.autograd.grad(
       att.fused_transformer_layer_ad(xi, wi), [xi, *wi], g))
-  torch.save(dict(outs=outs, fwd_ms=fwd_ms, ad_ms=ad_ms), out_path)
+  prof = {B: _profile_ad(att, B, dev, time_ms) for B in PROFILE_BATCHES}
+  torch.save(dict(outs=outs, fwd_ms=fwd_ms, ad_ms=ad_ms, prof=prof),
+             out_path)
+
+
+def _kernel_group(name: str) -> str:
+  if "transformer_layer_bwd" in name:
+    return "backward kernel"
+  if "transformer_layer" in name:
+    return "saving forward kernel"
+  if "gemm" in name.lower() or "cutlass" in name.lower():
+    return "weight products (GEMM)"
+  return "other kernels"
+
+
+def _profile_ad(att, B, dev, time_ms, n=20, warm=3):
+  """Device time per call of fused_transformer_layer_ad's forward +
+  backward at (B, 17, 64), F 256, by kernel group; the call's time with
+  CUDA events and the host's time to issue it."""
+  import time
+
+  import torch
+  x, w = _inputs(B, 17, 64, 256, dev)
+  g = torch.randn(x.shape, generator=torch.Generator(device=dev)
+                  .manual_seed(2), device=dev)
+  xi = x.clone().requires_grad_(True)
+  wi = att.LayerWeights(*[t.clone().requires_grad_(True) for t in w])
+  call = lambda: torch.autograd.grad(att.fused_transformer_layer_ad(xi, wi),
+                                     [xi, *wi], g)
+  call_ms = time_ms(call, n=n, warm=warm)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  for _ in range(n):
+    call()
+  host_ms = (time.perf_counter() - t) / n * 1e3
+  torch.cuda.synchronize()
+  acts = [torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=acts) as p:
+    for _ in range(n):
+      call()
+    torch.cuda.synchronize()
+  groups = {}
+  for e in p.key_averages():
+    if e.device_type != torch.autograd.DeviceType.CUDA:
+      continue
+    k = _kernel_group(e.key)
+    groups[k] = groups.get(k, 0.0) + e.device_time_total / 1e3 / n
+  return dict(call_ms=call_ms, host_issue_ms=host_ms, device_ms=groups,
+              busy=sum(groups.values()) / call_ms)
 
 
 def main() -> int:
@@ -112,6 +169,13 @@ def main() -> int:
     print(f"{root}: fused_transformer_layer {r['fwd_ms']:.4f} ms, "
           f"fused_transformer_layer_ad forward + backward {r['ad_ms']:.4f} "
           f"ms at B=1024 T=17 D=64 F=256 on {card}", flush=True)
+    for B, pr in r["prof"].items():
+      parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(pr["device_ms"]
+                                                           .items()))
+      print(f"{root}: forward + backward at B={B} T=17: {pr['call_ms']:.4f} "
+            f"ms a call (CUDA events), host issue {pr['host_issue_ms']:.4f} "
+            f"ms, device timeline ms a call: {parts or 'no device events'}; "
+            f"busy {pr['busy']:.3f} on {card}", flush=True)
   return 0 if all(same.values()) else 1
 
 

@@ -24,7 +24,6 @@ from vision4leg_torch.algo.ppo import PPOConfig, PPOLearner
 from vision4leg_torch.algo.on_policy_base import AdamState
 from vision4leg_torch.collector import rollout as rollout_lib
 from vision4leg_torch.data import normalizer as norm
-from vision4leg_torch.envs.mpc_env import A1MPCGymEnv
 
 
 def _flatten(x, prefix: str, out: Dict[str, torch.Tensor]):
@@ -90,11 +89,6 @@ class PPOAgent:
     if eval_env is not None:
       raise NotImplementedError("a separate (sim2sim) eval env is ROADMAP "
                                 "queue 1 item 3")
-    if isinstance(env, A1MPCGymEnv):
-      raise NotImplementedError(
-          "PPO training and eval on A1MoveGroundMPC are not ported yet "
-          "(ROADMAP queue 1 item 2); its collection runs through "
-          "collector.rollout")
     if getattr(env.cfg, "curriculum", False):
       raise NotImplementedError("the curriculum wrapper (envs/wrappers.py) "
                                 "is ROADMAP queue 1 item 3, left out")

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -137,6 +137,17 @@ class TrainState:
     return dataclasses.replace(self, **kw)
 
 
+def minibatches(cfg: OnPolicyConfig, T: int, E: int) -> Tuple[int, int]:
+  """(time rows per minibatch, minibatches per opt epoch) of a (T, E)
+  trajectory: a minibatch takes whole time rows, batch_size // E of them
+  and at least one, as the JAX learner does.  So with E >= batch_size a
+  minibatch holds E samples (at 1024 envs the MPC config's batch_size 512
+  gives minibatches of 1024, 8 an opt epoch at T = 8), with fewer envs
+  batch_size // E * E."""
+  rows = max(cfg.batch_size // E, 1)
+  return rows, T // rows
+
+
 class OnPolicyLearner:
   """Base learner; subclasses implement `_minibatch_update(ts, batch)`.
 
@@ -185,8 +196,7 @@ class OnPolicyLearner:
     T, E = traj.rewards.shape[:2]
     dev = traj.rewards.device
     advs, rets = self.compute_advantages(traj, last_value)
-    rows_per_batch = max(cfg.batch_size // E, 1)
-    n_batches = T // rows_per_batch
+    rows_per_batch, n_batches = minibatches(cfg, T, E)
     adv_metrics = {
         "advs/mean": advs.mean(), "advs/std": advs.std(correction=0),
         "advs/max": advs.max(), "advs/min": advs.min(),

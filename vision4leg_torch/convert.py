@@ -106,20 +106,29 @@ def _attention_layer(sd, prefix, p):
   _dense(sd, f"{prefix}.ff2", p["Dense_1"])
 
 
-def params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
-  """state_dict of models.actor_critic.LocoTransformerActorCritic from the
-  flax module's params (`variables["params"]`, or the whole variables dict)
-  pulled to numpy; layer counts are read from the params.  The torch
-  LayerNorms use eps 1e-6 like flax's."""
-  p = np_params.get("params", np_params)
+def encoder_from_flax(enc: Mapping) -> Dict[str, torch.Tensor]:
+  """state_dict of models.base.LocoTransformerEncoder, or of
+  VisionTokenEncoder when the flax encoder has no proprio MLP, from the
+  flax encoder's params pulled to numpy."""
   sd: Dict[str, torch.Tensor] = {}
-  enc = p["encoder"]
-  _mlp(sd, "encoder.state_mlp.layers", enc["MLPBase_0"])
-  _dense(sd, "encoder.state_proj", enc["RLProjection_0"]["Dense_0"])
+  if "MLPBase_0" in enc:
+    _mlp(sd, "state_mlp.layers", enc["MLPBase_0"])
+    _dense(sd, "state_proj", enc["RLProjection_0"]["Dense_0"])
   nat = enc["NatureEncoder_0"]
   for i in range(3):
-    _conv(sd, f"encoder.nature.convs.{i}", nat[f"Conv_{i}"])
-  _conv(sd, "encoder.token_conv", enc["Conv_0"])
+    _conv(sd, f"nature.convs.{i}", nat[f"Conv_{i}"])
+  _conv(sd, "token_conv", enc["Conv_0"])
+  return sd
+
+
+def params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
+  """state_dict of models.actor_critic.LocoTransformerActorCritic, or of
+  VisionOnlyTransformerActorCritic when the encoder has no proprio MLP,
+  from the flax module's params (`variables["params"]`, or the whole
+  variables dict) pulled to numpy; layer counts are read from the params.
+  The torch LayerNorms use eps 1e-6 like flax's."""
+  p = np_params.get("params", np_params)
+  sd = {f"encoder.{k}": v for k, v in encoder_from_flax(p["encoder"]).items()}
   n_layers = sum(1 for k in p if k.startswith("pf_layers_"))
   for side in ("pf", "vf"):
     for li in range(n_layers):

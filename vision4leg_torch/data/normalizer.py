@@ -25,7 +25,10 @@ def init_normalizer(dim: int, device="cpu") -> NormalizerState:
 def update(state: NormalizerState, batch) -> NormalizerState:
   """Merge the statistics of a (B, D) batch (base_wrapper.py:44-61)."""
   b_mean = torch.mean(batch, dim=0)
-  b_var = torch.var(batch, dim=0, unbiased=False)
+  # a zero-size head (vision-only envs) has nothing to merge but the
+  # count; torch.var warns on it
+  b_var = (torch.var(batch, dim=0, unbiased=False) if batch.shape[-1]
+           else b_mean)
   b_count = batch.shape[0]
   delta = b_mean - state.mean
   tot = state.count + b_count

@@ -140,14 +140,17 @@ def gen_blocks_sparse(gen: torch.Generator, n_env: int, device
 
 TERRAIN_GENERATORS = {
     "plane": gen_plane,
+    "random_blocks_sparse": gen_blocks_sparse,
     "random_blocks_sparse_with_subgoal": gen_blocks_sparse,
 }
 
 # camera frustum-prune cap per terrain (see camera.render_depth)
-RENDER_BOX_CAPS = {"random_blocks_sparse_with_subgoal": 16}
+RENDER_BOX_CAPS = {"random_blocks_sparse": 16,
+                   "random_blocks_sparse_with_subgoal": 16}
 
 # per-type init pose (QUADRUPED_INIT_POSITION, a1_randomizer_ground.py:286)
 INIT_POSITION = {
     "plane": (0, 0, 0.32),
+    "random_blocks_sparse": (0, 0, 0.32),
     "random_blocks_sparse_with_subgoal": (0, 0, 0.32),
 }

@@ -1,6 +1,7 @@
-"""LocoTransformer actor-critic (torch mirror of
-vision4leg_tpu.models.actor_critic.LocoTransformerActorCritic; reference
-ppo_locotransformer.py:79-101): one shared tokenizer; separate
+"""LocoTransformer actor-critics (torch mirror of
+vision4leg_tpu.models.actor_critic.LocoTransformerActorCritic and
+VisionOnlyTransformerActorCritic; reference ppo_locotransformer.py:79-101
+and ppo_locotransformer_vision_only.py): one shared tokenizer; separate
 transformer stacks and MLP heads for policy and value; a learnable
 state-independent logstd initialized to log(0.125), clamped to [-5, 2]
 (continuous_policy.py:8-9, 239-254)."""
@@ -14,10 +15,17 @@ from torch import nn
 
 from vision4leg_torch.models import init as winit
 from vision4leg_torch.models.base import (LocoTransformerEncoder,
-                                          TransformerEncoderLayer)
+                                          TransformerEncoderLayer,
+                                          VisionTokenEncoder)
 
 LOG_SIG_MAX = 2.0
 LOG_SIG_MIN = -5.0
+
+
+def gaussian_head(logstd, mean):
+  """(mean, std, logstd) of the state-independent Gaussian policy."""
+  logstd = torch.clamp(logstd, LOG_SIG_MIN, LOG_SIG_MAX)
+  return mean, torch.exp(logstd).expand_as(mean), logstd
 
 
 class MLPHead(nn.Module):
@@ -92,8 +100,7 @@ class LocoTransformerActorCritic(nn.Module):
     return torch.cat([tokens[:, 0], pooled], dim=-1)
 
   def _head(self, mean):
-    logstd = torch.clamp(self.logstd, LOG_SIG_MIN, LOG_SIG_MAX)
-    return mean, torch.exp(logstd).expand_as(mean), logstd
+    return gaussian_head(self.logstd, mean)
 
   def pi(self, x, fused: bool = False):
     """-> (mean, std, logstd).  `fused` runs each transformer layer through
@@ -121,3 +128,81 @@ class LocoTransformerActorCritic(nn.Module):
     for layer in self.vf_layers:
       t = layer(t, fused=fused)
     return pi_out, self.vf_mlp(self._pool(t))
+
+
+class VisionOnlyTransformerActorCritic(nn.Module):
+  """ppo_locotransformer_vision_only (the JAX package's
+  VisionOnlyTransformerActorCritic): the transformer stacks run over the
+  16 depth tokens of VisionTokenEncoder alone; the proprio head of the
+  observation (empty on the vision-only MPC env) is ignored.  Each stack's
+  output is pooled over tokens [0, 1 + per_modal_tokens) as the reference
+  slices it (nets.py:884-901), which on one modality's 16 tokens is all of
+  them.  encoder_hidden_shapes is accepted for the config's sake: the
+  vision-only encoder has no proprio MLP."""
+
+  def __init__(self, action_dim: int, state_input_shape: int,
+               visual_input_shape: Tuple[int, int, int] = (4, 64, 64),
+               encoder_hidden_shapes: Sequence[int] = (256, 256),
+               transformer_params: Sequence[tuple] = ((1, 256), (1, 256)),
+               append_hidden_shapes: Sequence[int] = (256, 256),
+               token_dim: int = 64, max_pool: bool = False,
+               log_init: float = 0.125,
+               generator: torch.Generator | None = None):
+    super().__init__()
+    del encoder_hidden_shapes
+    if visual_input_shape[0] != 4:
+      raise NotImplementedError(
+          f"the vision-only model takes 4 depth frames, got "
+          f"{visual_input_shape[0]} channels: 16 is rgbd, which the port's "
+          "env rejects (envs/env.py), and the rgb modalities are ROADMAP "
+          "queue 1 item 4")
+    self.state_input_shape = state_input_shape
+    self.max_pool = max_pool
+    self.visual_input_shape = tuple(visual_input_shape)
+    self.encoder = VisionTokenEncoder(visual_input_shape[0], token_dim)
+    self.pf_layers = nn.ModuleList(
+        TransformerEncoderLayer(token_dim, nh, ff)
+        for nh, ff in transformer_params)
+    self.vf_layers = nn.ModuleList(
+        TransformerEncoderLayer(token_dim, nh, ff)
+        for nh, ff in transformer_params)
+    self.pf_mlp = MLPHead(token_dim, append_hidden_shapes, action_dim)
+    self.vf_mlp = MLPHead(token_dim, append_hidden_shapes, 1)
+    self.logstd = nn.Parameter(torch.full((action_dim,), math.log(log_init)))
+    if generator is not None:
+      self.init_weights(generator)
+
+  def init_weights(self, gen: torch.Generator):
+    """The reference's initializers, drawn from `gen`."""
+    self.encoder.init_weights(gen)
+    for layer in (*self.pf_layers, *self.vf_layers):
+      layer.init_weights(gen)
+    self.pf_mlp.init_weights(gen)
+    self.vf_mlp.init_weights(gen)
+
+  def _tokens(self, x):
+    visual_x = x[..., self.state_input_shape:].reshape(
+        x.shape[:-1] + self.visual_input_shape)
+    return self.encoder(visual_x)
+
+  def _stack(self, t, layers, mlp, fused):
+    for layer in layers:
+      t = layer(t, fused=fused)
+    t = t[:, :1 + self.encoder.per_modal_tokens]
+    return mlp(t.amax(dim=1) if self.max_pool else t.mean(dim=1))
+
+  def pi(self, x, fused: bool = False):
+    """-> (mean, std, logstd); `fused` as in LocoTransformerActorCritic."""
+    return gaussian_head(self.logstd, self._stack(
+        self._tokens(x), self.pf_layers, self.pf_mlp, fused))
+
+  def v(self, x, fused: bool = False):
+    """-> (B, 1) value."""
+    return self._stack(self._tokens(x), self.vf_layers, self.vf_mlp, fused)
+
+  def pi_v(self, x, fused: bool = False):
+    """Tokenize once, run both stacks: ((mean, std, logstd), value)."""
+    t = self._tokens(x)
+    return (gaussian_head(self.logstd, self._stack(t, self.pf_layers,
+                                                   self.pf_mlp, fused)),
+            self._stack(t, self.vf_layers, self.vf_mlp, fused))

@@ -81,6 +81,36 @@ class LocoTransformerEncoder(nn.Module):
     return torch.cat([s[:, None], v], dim=1)
 
 
+class VisionTokenEncoder(nn.Module):
+  """Vision-only tokenizer (base.py:388-496) for one depth modality:
+  NatureEncoder -> 1x1 conv (or, with two_by_two, 2x2 stride-2 conv) to
+  token_dim -> 16 (or 4) spatial tokens, and no proprio token.  Output
+  (B, tokens, token_dim), tokens in the JAX package's order (row-major
+  over the conv's output grid)."""
+
+  def __init__(self, in_channels: int, token_dim: int = 64,
+               two_by_two: bool = False):
+    super().__init__()
+    if in_channels != 4:
+      raise NotImplementedError(
+          f"only the 4-frame depth tokenizer is ported, got {in_channels} "
+          "channels: the env rejects rgbd (envs/env.py), and the rgb "
+          "modalities are ROADMAP queue 1 item 4")
+    self.per_modal_tokens = 4 if two_by_two else 16
+    self.nature = NatureEncoder(in_channels)
+    self.token_conv = (nn.Conv2d(64, token_dim, 2, 2) if two_by_two
+                       else nn.Conv2d(64, token_dim, 1))
+
+  def init_weights(self, gen):
+    self.nature.init_weights(gen)
+    winit.orthogonal_(self.token_conv, gen)
+
+  def forward(self, visual_x):
+    h = self.token_conv(self.nature(visual_x))          # (B, D, P, P)
+    # (B, P*P, D), contiguous as the fused layer takes it
+    return h.flatten(2).transpose(1, 2).contiguous()
+
+
 class TransformerEncoderLayer(nn.Module):
   """Post-norm encoder layer, dropout 0 (torch nn.TransformerEncoderLayer
   semantics, as the flax mirror): x = LN(x + SelfAttn(x));

@@ -159,12 +159,19 @@ def layer_backward_rows(res: Residuals, g, w: LayerWeights) -> BackwardRows:
   dctx = dr1 @ w.wo.t()
   dp = dctx @ res.v.transpose(1, 2)
   dv = res.p.transpose(1, 2) @ dctx
-  ds = res.p * (dp - (dp * res.p).sum(-1, keepdim=True)) / (D ** 0.5)
+  c = (dp * res.p).sum(-1, keepdim=True)
+  ds = res.p * (dp - c) / (D ** 0.5)
   dq = ds @ res.k
   dk = ds.transpose(1, 2) @ res.q
   dx = dr1 + dq @ w.wq.t() + dk @ w.wk.t() + dv @ w.wv.t()
-  sums = torch.cat([t.sum(1) for t in (
-      dq, dk, dv, dr1, dy * res.xhat1, dy, dh, dz2, g * res.xhat2, g)], -1)
+  # bk's sum over dk's rows: sum_u q[u] rowsum(ds)[u], and ds's row sums
+  # are c (1 - rowsum(p)) / sqrt(D) (softmax is unchanged by a shift
+  # along the keys); 1 - rowsum(p), of the order of p's rounding, taken
+  # in float64, far below it (csrc tlb_phase 12)
+  gap = (1 - res.p.double().sum(-1, keepdim=True)).to(res.p.dtype)
+  dbk = (res.q * (c * gap)).sum(1) / (D ** 0.5)
+  sums = torch.cat([dq.sum(1), dbk] + [t.sum(1) for t in (
+      dv, dr1, dy * res.xhat1, dy, dh, dz2, g * res.xhat2, g)], -1)
   return BackwardRows(dx=dx, dqkv=torch.cat([dq, dk, dv], -1), dr1=dr1,
                       dh=dh, dz2=dz2, sums=sums)
 

@@ -1432,9 +1432,26 @@ __device__ inline void tlb_phase(int ph, const BwdArgs& a, float* base,
       for (int idx = tid; idx < D * nrb + 3 * D; idx += nt) {
         if (idx >= D * nrb) {
           const int c = idx - D * nrb, which = c / D;
-          col_sums(which == 0 ? m.c : which == 1 ? m.v : m.a, nullptr, m.ld,
-                   T, which == 0 ? p_bq : which == 1 ? p_bk : p_bv, nullptr,
-                   c % D);
+          if (which == 1) {
+            // bk's sum: dk = dS^T q sums over its rows to sum_u q[u]
+            // rowsum(dS)[u], and dS's row u to c[u] (1 - sum_t P[u][t]) /
+            // sqrt(D) with c = rowsum(dP * P) (s1): the softmax is
+            // unchanged by a shift along the keys.  1 - sum P is of the
+            // order of P's rounding, so the sum runs in double, far
+            // below it; a sum of dk's (or dS's) rounded elements would
+            // leave rounding noise of their size instead.
+            const int j = c % D;
+            float s = 0.0f;
+            for (int u = 0; u < T; ++u) {
+              double r = 1.0;
+              for (int t = 0; t < T; ++t) r -= (double)m.p[u * m.lds + t];
+              s = fmaf(m.q[u * m.ld + j], m.s1[u] * (float)r, s);
+            }
+            p_bk[j] = s / sqrtf((float)D);
+            continue;
+          }
+          col_sums(which == 0 ? m.c : m.a, nullptr, m.ld, T,
+                   which == 0 ? p_bq : p_bv, nullptr, c % D);
           continue;
         }
         const int i = idx % D, r0 = (idx / D) * RB;

@@ -51,6 +51,25 @@ def num_eval_envs(params: dict) -> int:
   return episodes if _flag("V4L_STRICT_EVAL") else max(8, episodes)
 
 
+def locotransformer_kwargs(env, params: dict) -> dict:
+  """The LocoTransformer actor-critics' arguments from a JSON config (4
+  depth frames; rgbd is rejected by the env)."""
+  enc = params.get("encoder", {})
+  net = params.get("net", {})
+  return dict(
+      action_dim=env.cfg.action_dim,
+      state_input_shape=env.cfg.proprio_dim,
+      visual_input_shape=(4, 64, 64),
+      encoder_hidden_shapes=tuple(enc.get("hidden_shapes", (256, 256))),
+      transformer_params=tuple(
+          tuple(p) for p in net.get("transformer_params",
+                                    ((1, 256), (1, 256)))),
+      append_hidden_shapes=tuple(net.get("append_hidden_shapes",
+                                         (256, 256))),
+      max_pool=net.get("max_pool", False),
+      **params.get("policy", {}))
+
+
 def run_experiment(build_module):
   """build_module(env, params) -> uninitialized torch actor-critic."""
   args = get_args()
