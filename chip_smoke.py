@@ -109,15 +109,39 @@ Phases, each printed with the seconds since start:
      hybrid launches held to 20 per env step, its settle launches (one a
      reset) counted apart; the checkpoint, MpcEnvState included,
      restored equal;
- 13. one JSON line with every kernel's numbers (launches summed over the
+ 13. MMDR on moving obstacles (`phase_training` as in phase 6):
+     config/rl/moving/locotransformer_random_delay/thin-goal.json, the
+     LocoTransformer at full width, 1024 envs, fused layer on, one epoch
+     (a 16-step rollout, 3 x 16 minibatches of 1024), an eval of 32 x 8,
+     the checkpoint (frame indices, interpolation delays and moving
+     directions included) restored equal, launches held exactly; then
+     every frame_idx[:, k] in [k fe, (k + 1) fe), one more step moving
+     each of the first 50 boxes by its table step exactly
+     (`check_mmdr_step`), observations finite;
+ 14. the Nature-CNN baseline (`starter/ppo_nature_cnn.py`'s module) on
+     config/rl/moving/frame_extract4_random_delay/thin-wide.json, one
+     epoch at 1024 envs (no fused layer: the window's launches held);
+     then the window against its plain version by `compare_with_plain`
+     on `moving_case`: that epoch's last states, the boxes moved by one
+     more step and pruned, with the nearest box of every fourth env moved
+     against a toe; two calls give the same bits; timed as in phase 3;
+ 15. one 16-step collection at 1024 envs of config/rl/static/
+     frame_extract4_interpolation/thin-goal.json (each interpolated image
+     between the minimum and maximum of the frames it averages) and of
+     frame_extract4_fixed_delay/thin-goal.json (slots fe - 1 ... 4 fe - 1),
+     both with the Nature-CNN model, and a 4-step collection of
+     config/mpc_vision_only/baseline/thin-goal.json with the vision-only
+     Nature-CNN model (4 x 20 hybrid launches, settles counted apart);
+ 16. one JSON line with every kernel's numbers (launches summed over the
      paths, with each path's count and the shapes run), then the last
      line {"ok": true, "device": {...}}.
 
 Cuts of depth: training runs two epochs (thin-goal, MPC) or one
-(vision-only) of the configs' 1500; thin-goal's eval 32 of 999 steps and
-the MPC evals 4 (an MPC step is host-bound at ~0.25-0.5 s); MPC
-collection one 8-step rollout; the MPC walk 20 steps at 64 envs.  Widths
-are the configs' own.
+(vision-only, MMDR, Nature-CNN) of the configs' 1500; the non-MPC evals
+32 of 999 steps and the MPC evals 4 (an MPC step is host-bound at
+~0.25-0.5 s); MPC collection one 8-step rollout, the vision-only
+baseline's 4 steps; the MPC walk 20 steps at 64 envs.  Widths are the
+configs' own.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
 below), since outputs are compared; phase 7 turns cuDNN's TF32 on for
@@ -772,16 +796,18 @@ def time_layer_shape(x, w, lib, gen, card):
 
 
 def phase_training(label, env, meta, params, build_module, epochs,
-                   eval_horizon, card):
+                   eval_horizon, card, fused=True, check=None):
   """`epochs` PPO epochs of `params`' config through the port's starter
   pieces (`build_module` of a starter), fused layer on in collection and
-  update, an eval of eval_horizon steps after each; the launch counts set
-  to 0 just before and read just after, held to the path's exact counts;
-  metrics finite, parameters changed, the checkpoint restored into a
-  second agent equal to the first.  On the MPC env the window runs
-  policy_freq hybrid launches a step, and each reset (the rollout's
-  partial resets, the eval's) one settle launch, counted apart.  Returns
-  the launch counts and each epoch's numbers."""
+  update (off with fused=False: the Nature-CNN models have no layer), an
+  eval of eval_horizon steps after each; the launch counts set to 0 just
+  before and read just after, held to the path's exact counts; metrics
+  finite, parameters changed, the checkpoint restored into a second agent
+  equal to the first.  On the MPC env the window runs policy_freq hybrid
+  launches a step, and each reset (the rollout's partial resets, the
+  eval's) one settle launch, counted apart.  `check(agent)` runs after
+  the counts are read.  Returns the launch counts, each epoch's numbers
+  and what `check` returned (`checked`)."""
   import csv
 
   import torch
@@ -803,8 +829,8 @@ def phase_training(label, env, meta, params, build_module, epochs,
         save_dir=os.path.join(logger.work_dir, "model"), eval_interval=1,
         save_interval=epochs, num_eval_envs=n_eval,
         obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"],
-        reward_scale=meta["reward_scale"], fused_attention=True,
-        fused_update=True, eval_horizon=eval_horizon, device=env.device)
+        reward_scale=meta["reward_scale"], fused_attention=fused,
+        fused_update=fused, eval_horizon=eval_horizon, device=env.device)
 
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
     logger = Logger("chip_smoke", params["env_name"], 0, params, tmp)
@@ -835,18 +861,20 @@ def phase_training(label, env, meta, params, build_module, epochs,
     per_epoch_layer = (4 * horizon + 2 + 4 * n_mb) + 2 * eval_horizon
     want = {"physics_window": epochs * (horizon + eval_horizon) * per_step,
             "physics_window_settle": settles,
-            "transformer_layer": epochs * per_epoch_layer,
-            "transformer_layer_bwd": epochs * 4 * n_mb}
+            "transformer_layer": epochs * per_epoch_layer * fused,
+            "transformer_layer_bwd": epochs * 4 * n_mb * fused}
     log(f"[{label}] trained {epochs} epochs in {dt:.2f}s; launches "
         f"{launches}, expected {want} (per epoch: window ({horizon} + "
         f"{eval_horizon} eval) steps x {per_step}"
         + (f" hybrid, the settles of the rollout's partial resets and the "
            f"eval's reset counted apart" if mpc else "")
-        + f"; layer 4 x {horizon} pi_v + 2 last value + 4 x {n_mb} update "
-        f"at B={mb} (saving mode), 2 x {eval_horizon} eval at B={n_eval}; "
-        f"layer backward 4 x {n_mb} update at B={mb})")
+        + (f"; layer 4 x {horizon} pi_v + 2 last value + 4 x {n_mb} update "
+           f"at B={mb} (saving mode), 2 x {eval_horizon} eval at "
+           f"B={n_eval}; layer backward 4 x {n_mb} update at B={mb})"
+           if fused else "; no fused layer)"))
     if launches != want or (mpc and settles < epochs):
       raise AssertionError(f"[{label}] launch counts {launches} != {want}")
+    checked = check(a) if check is not None else None
 
     with open(logger.csv_file_path, newline="") as f:
       rows_ = list(csv.DictReader(f))
@@ -915,6 +943,7 @@ def phase_training(label, env, meta, params, build_module, epochs,
         f"states) equal; counts {cb}")
   launches["epochs"] = epoch_rows
   launches["minibatch"] = mb
+  launches["checked"] = checked
   return launches
 
 
@@ -1210,6 +1239,226 @@ def phase_walk(card, dev):
   return float(dx.min())
 
 
+MMDR_CONFIG = "config/rl/moving/locotransformer_random_delay/thin-goal.json"
+NATURE_MOVING_CONFIG = \
+    "config/rl/moving/frame_extract4_random_delay/thin-wide.json"
+INTERP_CONFIG = "config/rl/static/frame_extract4_interpolation/thin-goal.json"
+FIXED_DELAY_CONFIG = \
+    "config/rl/static/frame_extract4_fixed_delay/thin-goal.json"
+VISUAL_MPC_CONFIG = "config/mpc_vision_only/baseline/thin-goal.json"
+MPC_BASELINE_HORIZON = 4
+# envs of the moving case whose nearest box is moved against a toe
+INTO_CONTACT_EVERY = 4
+
+
+def check_mmdr_step(env, states, label):
+  """On trained states of a moving random-delay env: every frame_idx[:, k]
+  lies in [k fe, (k + 1) fe); one more step (launch count left as it
+  was) moves each of the first 50 boxes by its table step, from its
+  direction before the step, and leaves the others; the observations are
+  finite."""
+  import torch
+  from vision4leg_torch.envs import terrain as terr
+  from vision4leg_torch.ops import physics_kernel as pk
+  fe = env.cfg.frame_extract
+  k = torch.arange(4, device=states.frame_idx.device) * fe
+  idx = states.frame_idx
+  if not bool(((idx >= k) & (idx < k + fe)).all()):
+    raise AssertionError(f"[{label}] frame_idx outside [k fe, (k+1) fe)")
+  before = pk.robot_window.launches
+  gen = torch.Generator(device=env.device).manual_seed(11)
+  low, high = env.action_low, env.action_high
+  E = idx.shape[0]
+  act = low + (high - low) * torch.rand(E, low.shape[0], generator=gen,
+                                        device=env.device)
+  boxes, dirs = states.terrain.boxes, states.terrain.box_dirs.long()
+  after, obs, _, _, _ = env.step_batch(states, act, gen)
+  pk.robot_window.launches = before
+  table = torch.from_numpy(terr._DIRECTION).to(boxes.device)
+  moving = (torch.arange(boxes.shape[1], device=boxes.device)
+            < terr.NUM_SPARSE_BLOCKS)
+  want = boxes[..., :2] + table[dirs] * moving[:, None].float()
+  moved = after.terrain.boxes[..., :2]
+  if not (torch.equal(moved, want)
+          and torch.equal(after.terrain.boxes[..., 2:], boxes[..., 2:])):
+    raise AssertionError(f"[{label}] boxes did not move by their table "
+                         "step")
+  if not bool(torch.isfinite(obs).all()):
+    raise AssertionError(f"[{label}] non-finite observations")
+  n_moving = int(((table[dirs] != 0).any(-1) & moving).sum())
+  log(f"[{label}] frame_idx within [k fe, (k+1) fe) on {E} envs (distinct "
+      f"rows {len({tuple(r) for r in idx.tolist()})}); one more step moved "
+      f"{n_moving} boxes by their table step exactly, the rest stayed; "
+      "observations finite")
+
+
+def moving_case(env, states, seed=13):
+  """The window's inputs of one step of a moving env from `states` (the
+  boxes moved by that step and pruned, as step_batch hands them to the
+  window) under random actions; in every INTO_CONTACT_EVERY-th env the
+  nearest valid box is moved against a random toe, the toe 1 cm inside
+  the box's -x face (a box that moved into the robot).  Returns (args,
+  the envs moved into contact)."""
+  import torch
+  from vision4leg_torch.envs import terrain as terr
+  from vision4leg_torch.physics import engine
+  dev = env.device
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  E = states.step_counter.shape[0]
+  low, high = env.action_low, env.action_high
+  act12 = env._expand_action(low + (high - low) * torch.rand(
+      E, low.shape[0], generator=gen, device=dev))
+  draws = env.draw_step(E, states.terrain.boxes.shape[1], gen)
+  terrain = terr.moving_blocks_step(states.terrain, states.step_counter,
+                                    draws.move_dirs)
+  args = list(rollout_window_inputs(env, states.replace(terrain=terrain),
+                                    act12))
+  boxes = args[4].clone()
+  rs = states.robot
+  toes, _, _ = engine.contact_points_world(
+      env.model, rs.phys, engine.fwd_kinematics(env.model, rs.phys))
+  rows = torch.arange(0, E, INTO_CONTACT_EVERY, device=dev)
+  toe = toes[rows, torch.randint(4, (rows.numel(),), generator=gen,
+                                 device=dev)]
+  hx = boxes[rows, 0, 3]
+  boxes[rows, 0, 0] = toe[:, 0] + hx - 0.01
+  boxes[rows, 0, 1] = toe[:, 1]
+  boxes[rows, 0, 6] = 0.0
+  boxes[rows, 0, 7] = 1.0
+  args[4] = boxes
+  return tuple(args), rows
+
+
+def phase_moving_window(env, states, card):
+  """compare_with_plain on `moving_case` of `states` (two calls: same
+  bits), timed as phase 3; returns (max_abs_err, its timing numbers)."""
+  import torch
+  from vision4leg_torch.ops import physics_kernel as pk
+  args, rows = moving_case(env, states)
+  counts = {}
+  pk.window_plain(*args, counts=counts)
+  ok, rep = pk.compare_with_plain(args)
+  torch.cuda.synchronize()
+  log_window_report(f"moving, {rows.numel()} envs with a box moved into "
+                    "a toe", args, rep, counts)
+  if not ok:
+    raise AssertionError("physics_window disagrees with plain on the "
+                         "moving case")
+  check_repeatable("moving", args)
+  numbers, ms = time_window("moving", args, card, counts)
+  return rep["max_abs_err"], numbers, ms
+
+
+def phase_collection(label, config, build_module, horizon, card, dev,
+                     check=None):
+  """One `horizon`-step rollout at NUM_ENVS envs of `config` with the
+  starter module `build_module` (seeded random weights, no fused layer:
+  the collector calls pi_v, or pi then v), launch counts set to 0 just
+  before and held after: the window once a step (policy_freq hybrid
+  launches on the MPC env, whose partial resets' settles are counted
+  apart), the layer never.  `check(env, cs, traj)` runs after.  Returns
+  the launch counts and the rate."""
+  import torch
+  from vision4leg_torch.collector import rollout as rollout_lib
+  from vision4leg_torch.envs.mpc_env import A1MPCGymEnv
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  env, meta, params = build_env(config, dev)
+  mpc = isinstance(env, A1MPCGymEnv)
+  net = build_module(env, params)
+  net.init_weights(torch.Generator().manual_seed(0))
+  net = net.to(dev).eval()
+  gs = params["general_setting"]
+  rollout = rollout_lib.make_rollout_fn(
+      env, lambda x: (net.pi(x), net.v(x)), net.v, horizon=horizon,
+      max_episode_frames=params["collector"]["max_episode_frames"],
+      discount=gs["discount"], proprio_dim=env.cfg.proprio_dim,
+      obs_norm=meta["obs_norm"], action_low=env.action_low,
+      action_high=env.action_high, env_time_limit=meta["horizon"],
+      reward_scale=meta["reward_scale"])
+  gen = torch.Generator(device=dev).manual_seed(0)
+  t = time.perf_counter()
+  cs = rollout_lib.init_collector(env, NUM_ENVS, gen)
+  torch.cuda.synchronize()
+  log(f"[{label}] init_collector at {NUM_ENVS} envs: "
+      f"{time.perf_counter() - t:.2f}s")
+  settles = env.settle_windows if mpc else 0
+  pk.robot_window.launches = 0
+  att.fused_transformer_layer.launches = 0
+  att.fused_transformer_layer_bwd.launches = 0
+  t = time.perf_counter()
+  cs, traj, last_v = rollout(cs)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t
+  settles = (env.settle_windows - settles) if mpc else 0
+  launches = {"physics_window": pk.robot_window.launches - settles,
+              "physics_window_settle": settles}
+  per_step = env.cfg.policy_freq if mpc else 1
+  rate = horizon * NUM_ENVS / dt
+  log(f"[{label}] rollout: {horizon} steps x {NUM_ENVS} envs in {dt:.3f}s "
+      f"= {rate:.1f} env-steps/s on {card} ({type(net).__name__}); "
+      f"physics_window launches {launches} (expected {horizon} x "
+      f"{per_step}" + (" + the partial resets' settles" if mpc else "")
+      + "), transformer_layer launches "
+      f"{att.fused_transformer_layer.launches}")
+  if (launches["physics_window"] != horizon * per_step
+      or att.fused_transformer_layer.launches
+      or att.fused_transformer_layer_bwd.launches):
+    raise AssertionError(f"[{label}] launch counts {launches}")
+  for name in ("obs", "acts", "log_probs", "values", "rewards"):
+    if not torch.isfinite(getattr(traj, name)).all():
+      raise AssertionError(f"[{label}] non-finite {name}")
+  if traj.obs.shape != (horizon, NUM_ENVS, env.obs_dim) or not \
+      torch.isfinite(last_v).all():
+    raise AssertionError(f"[{label}] obs shape {tuple(traj.obs.shape)}")
+  if check is not None:
+    check(env, cs, traj)
+  return launches, rate
+
+
+def check_interpolation(env, cs, traj):
+  """Each interpolated image of the collector's last observations lies
+  between the minimum and the maximum of the frames it averages (after
+  the same depth normalization), within float32 rounding."""
+  import torch
+  st = cs.env_states
+  cfg = env.cfg
+  E = st.frames.shape[0]
+  rows = torch.arange(E, device=st.frames.device)
+  offs = torch.arange(cfg.frame_extract, device=st.frames.device)
+  slots = torch.clamp(st.frame_idx.long()[:, :, None] + offs, 0,
+                      cfg.num_stored_frames - 1)
+  sel = st.frames[rows[:, None, None], slots]            # (E, 4, fe, H, W)
+  used = (offs[None] <= st.interp_delay[:, None])[:, None, :, None, None]
+  inf = torch.tensor(float("inf"), device=sel.device)
+  lo = torch.where(used, sel, inf).amin(2)
+  hi = torch.where(used, sel, -inf).amax(2)
+  norm = ((lambda x: (x - 1.25) / 0.425)
+          if cfg.depth_norm and cfg.depth_image else (lambda x: x))
+  img = cs.raw_obs[:, cfg.proprio_dim:].reshape(E, 4, 64, 64)
+  slack = 1e-5 * (1 + img.abs())
+  out = (img < norm(lo) - slack) | (img > norm(hi) + slack)
+  delays = torch.bincount(st.interp_delay.long(),
+                          minlength=cfg.frame_extract).tolist()
+  varied = float(((hi - lo) > 0).float().mean())
+  log(f"[interpolation] last observations: {int(out.sum())} of "
+      f"{img.numel()} pixels outside [min, max] of their averaged frames; "
+      f"envs by interp_delay 0..{cfg.frame_extract - 1}: {delays}; share "
+      f"of pixels whose frames differ {varied:.4f}")
+  if bool(out.any()):
+    raise AssertionError("an interpolated image lies outside its frames")
+
+
+def check_fixed_delay(env, cs, traj):
+  """Every env observes slots fe - 1, 2 fe - 1, 3 fe - 1, 4 fe - 1."""
+  import torch
+  fe = env.cfg.frame_extract
+  want = (torch.arange(1, 5, device=cs.raw_obs.device) * fe - 1).int()
+  if not bool((cs.env_states.frame_idx == want).all()):
+    raise AssertionError("fixed delay: frame_idx is not [fe-1, ..., 4fe-1]")
+  log(f"[fixed delay] frame_idx {want.tolist()} on every env")
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -1225,6 +1474,9 @@ def main() -> int:
   from vision4leg_torch.starter import ppo_locotransformer as starter
   from vision4leg_torch.starter import \
       ppo_locotransformer_vision_only as vo_starter
+  from vision4leg_torch.starter import ppo_nature_cnn as nature_starter
+  from vision4leg_torch.starter import \
+      ppo_nature_cnn_vision_only as visual_starter
   from vision4leg_torch.starter.common import locotransformer_kwargs
 
   # outputs below are compared against references: no TF32 anywhere
@@ -1410,7 +1662,44 @@ def main() -> int:
   del vo_env
   torch.cuda.empty_cache()
 
-  # --- 13. results ----------------------------------------------------------
+  # --- 13. MMDR on moving obstacles, LocoTransformer ------------------------
+  mm_env, mm_meta, mm_params = build_env(MMDR_CONFIG, dev)
+  paths["MMDR moving training"] = phase_training(
+      "MMDR moving", mm_env, mm_meta, mm_params, starter.build_module, 1,
+      EVAL_HORIZON, card,
+      check=lambda a: check_mmdr_step(
+          mm_env, a.collector_state.env_states, "MMDR moving"))
+  del mm_env
+  torch.cuda.empty_cache()
+
+  # --- 14. Nature-CNN on moving thin-wide, and the moving window case -------
+  nm_env, nm_meta, nm_params = build_env(NATURE_MOVING_CONFIG, dev)
+  paths["Nature-CNN moving thin-wide training"] = phase_training(
+      "Nature-CNN moving thin-wide", nm_env, nm_meta, nm_params,
+      nature_starter.build_module, 1, EVAL_HORIZON, card, fused=False,
+      check=lambda a: phase_moving_window(
+          nm_env, a.collector_state.env_states, card))
+  moving_err, moving_numbers, moving_ms = \
+      paths["Nature-CNN moving thin-wide training"]["checked"]
+  max_err = max(max_err, moving_err)
+  del nm_env
+  torch.cuda.empty_cache()
+
+  # --- 15. interpolation, fixed delay, and the MPC vision-only baseline -----
+  collections = {}
+  for label, config, check in (
+      ("interpolation collection", INTERP_CONFIG, check_interpolation),
+      ("fixed-delay collection", FIXED_DELAY_CONFIG, check_fixed_delay)):
+    collections[label] = phase_collection(
+        label, config, nature_starter.build_module, horizon, card, dev,
+        check)
+    torch.cuda.empty_cache()
+  collections["vision-only MPC baseline collection"] = phase_collection(
+      "vision-only MPC baseline", VISUAL_MPC_CONFIG,
+      visual_starter.build_module, MPC_BASELINE_HORIZON, card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 16. results ----------------------------------------------------------
   # launches: the sum over the paths that run a kernel, each read just
   # after it was driven with the counts at 0 (by path beside it)
   by_path = {k: {n: v[n] for n in ("physics_window", "physics_window_settle",
@@ -1419,6 +1708,7 @@ def main() -> int:
              for k, v in paths.items()}
   by_path["MPC collection"] = {"physics_window": mpc_launches,
                                "physics_window_settle": mpc_settles}
+  by_path.update({k: v for k, (v, _) in collections.items()})
   total = lambda name: sum(v.get(name, 0) for v in by_path.values())
   row1_paths = {k: v["physics_window"] for k, v in by_path.items()
                 if "MPC" not in k}
@@ -1434,7 +1724,8 @@ def main() -> int:
       source="vision4leg_torch/ops/csrc/physics_window.cu",
       replaces="vision4leg_tpu/ops/physics_kernel.py:122",
       launches=sum(row1_paths.values()), launches_by_path=row1_paths,
-      shapes="16 substeps at 1024 envs (thin-goal collection) and 8 "
+      shapes="16 substeps at 1024 envs (thin-goal, moving thin-goal and "
+             "thin-wide, interpolation and fixed-delay collection) and 8 "
              "(eval); the MPC resets' settles of settle_steps substeps at "
              "1024 envs, the partial resets' envs and 8 (eval)",
       max_abs_err=max_err, **window), dict(
@@ -1460,11 +1751,18 @@ def main() -> int:
       replaces="vision4leg_tpu/ops/physics_kernel.py:122 (hybrid mode, "
                ":125-136)",
       launches=sum(row1h_paths.values()), launches_by_path=row1h_paths,
-      shapes="5 substeps at 1024 envs (collection) and 8 (eval)",
+      shapes="5 substeps at 1024 envs (collection: LocoTransformer, "
+             "vision-only and the vision-only Nature-CNN baseline) and 8 "
+             "(eval)",
       **hybrid)]
   print(json.dumps({"kernels": kernels, "card": card,
                     "window_ms": {"rollout": window_ms,
-                                  "hybrid": hybrid_ms},
+                                  "hybrid": hybrid_ms,
+                                  "moving": moving_ms},
+                    "moving_window": dict(max_abs_err=moving_err,
+                                          **moving_numbers),
+                    "collections_env_steps_per_s": {
+                        k: rate for k, (_, rate) in collections.items()},
                     "collection_env_steps_per_s": horizon * num_envs / dt,
                     "training": {k: v["epochs"] for k, v in paths.items()},
                     "mpc_collection_env_steps_per_s": mpc_rate,

@@ -1,0 +1,115 @@
+"""The JSON configs the port runs, and those it refuses, on the CPU.
+
+Each config the port runs builds its env (on the CPU, without a reset)
+and its torch starter's actor-critic at the config's width, and the
+module takes a batch of the env's observation layout.  The starter
+follows the config's directory, as the reference's README pairs them:
+LocoTransformer for `locotransformer*`, the vision-only LocoTransformer
+for `mpc_vision_only/locotransformer`, the Nature-CNN baseline for
+`naive_baseline`, `frame_extract4*` and `mpc/baseline`, and its
+vision-only form for `mpc_vision_only/baseline`.  Each thin-random-shape
+config is refused (`random_shape`, which the JAX env ignores) and each
+heightfield config (a terrain not ported); the MPC env refuses the MMDR
+options and moving obstacles, which the JAX MPC env ignores.
+"""
+import glob
+import json
+import os
+
+import pytest
+import torch
+
+from vision4leg_torch.envs.get_env import get_env
+from vision4leg_torch.starter import (ppo_locotransformer,
+                                      ppo_locotransformer_vision_only,
+                                      ppo_nature_cnn,
+                                      ppo_nature_cnn_vision_only)
+
+ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "config")
+FLAT = ("thin-goal", "thin", "thin-wide")
+RL_STATIC = ("frame_extract4", "frame_extract4_fixed_delay",
+             "frame_extract4_interpolation", "frame_extract4_random_delay",
+             "locotransformer_random_delay", "naive_baseline")
+RL_MOVING = ("frame_extract4", "frame_extract4_random_delay",
+             "locotransformer", "locotransformer_random_delay",
+             "naive_baseline")
+MPC = ("mpc/baseline", "mpc_vision_only/baseline")
+
+
+def _ported_by_this_slice():
+  out = [f"rl/static/{d}/{t}" for d in RL_STATIC for t in FLAT]
+  out.append("rl/static/locotransformer/thin-wide")
+  out += [f"rl/moving/{d}/{t}" for d in RL_MOVING for t in FLAT]
+  out += [f"{d}/{t}" for d in MPC for t in FLAT]
+  out += ["mpc/locotransformer/thin-wide",
+          "mpc_vision_only/locotransformer/thin-wide"]
+  return out
+
+
+def _refused():
+  """The configs that set random_shape or a heightfield terrain."""
+  out = []
+  for path in glob.glob(os.path.join(ROOT, "**", "*.json"), recursive=True):
+    with open(path) as f:
+      build = json.load(f)["env"].get("env_build", {})
+    if build.get("random_shape") or "heightfield" in build.get(
+        "terrain_type", ""):
+      out.append(os.path.relpath(path, ROOT)[:-5])
+  return sorted(out)
+
+
+PORTED = _ported_by_this_slice()
+REFUSED = _refused()
+
+
+def _starter(name):
+  if "vision_only" in name:
+    return (ppo_locotransformer_vision_only if "locotransformer" in name
+            else ppo_nature_cnn_vision_only)
+  return ppo_locotransformer if "locotransformer" in name else ppo_nature_cnn
+
+
+def _params(name):
+  with open(os.path.join(ROOT, name + ".json")) as f:
+    return json.load(f)
+
+
+def test_the_slice_counts_42_configs():
+  assert len(PORTED) == len(set(PORTED)) == 42
+  for name in PORTED:
+    assert os.path.exists(os.path.join(ROOT, name + ".json")), name
+  # 16 thin-random-shape, 16 thin-heightfield, state-only-baseline
+  assert len(REFUSED) == 33
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_config_builds_env_and_module(name):
+  params = _params(name)
+  env, meta = get_env(params["env_name"], params["env"], device="cpu")
+  module = _starter(name).build_module(env, params)
+  obs = torch.zeros(2, env.obs_dim)
+  with torch.no_grad():
+    mean, std, _ = module.pi(obs)
+    value = module.v(obs)
+  assert mean.shape == std.shape == (2, env.cfg.action_dim)
+  assert value.shape == (2, 1) and meta["obs_norm"]
+
+
+@pytest.mark.parametrize("name", REFUSED)
+def test_config_is_refused(name):
+  params = _params(name)
+  reason = ("random_shape" if _params(name)["env"]["env_build"].get(
+      "random_shape") else "terrain .* is not ported")
+  with pytest.raises(NotImplementedError, match=reason):
+    get_env(params["env_name"], params["env"], device="cpu")
+
+
+@pytest.mark.parametrize("option", ["reset_frame_idx",
+                                    "reset_frame_idx_each_step",
+                                    "interpolation", "moving"])
+def test_mpc_env_refuses_what_the_jax_mpc_env_ignores(option):
+  params = _params("mpc/baseline/thin-goal")
+  params["env"]["env_build"].update({option: True, "frame_extract": 4})
+  with pytest.raises(NotImplementedError, match="accepts and ignores"):
+    get_env(params["env_name"], params["env"], device="cpu")

@@ -184,7 +184,8 @@ def test_env_rejects_what_it_does_not_run():
     tenv_mod.A1GymEnv(tenv_mod.EnvConfig(terrain_type="random_hill"),
                       device="cpu")
   with pytest.raises(NotImplementedError, match="queue 1 items 3-4"):
-    tenv_mod.A1GymEnv(tenv_mod.EnvConfig(moving=True), device="cpu")
+    tenv_mod.A1GymEnv(tenv_mod.EnvConfig(enable_action_filter=True),
+                      device="cpu")
 
 
 def test_env_draws_its_own_randomness():

@@ -79,6 +79,9 @@ class PPOAgent:
     fused transformer layer; fused_update also the PPO update's `pi`/`v`,
     the bootstraps and eval.  fused_update defaults, as in the JAX agent,
     to fused_attention and V4L_FUSED_UPDATE set to a value other than 0.
+    A module without `pi_v` (the Nature-CNN models) is collected with `pi`
+    then `v`, as the JAX collector does; it has no fused layer, and asking
+    for one raises where the JAX agent turns it off.
     """
     if inference_dtype is not None:
       raise NotImplementedError("bf16 collection (inference_dtype) is not "
@@ -126,13 +129,27 @@ class PPOAgent:
     if fused_update is None:
       fused_update = (fused_attention and os.environ.get(
           "V4L_FUSED_UPDATE", "") not in ("", "0"))
+    has_fused = hasattr(ac_module, "pi_v")
+    if (fused_attention or fused_update) and not has_fused:
+      raise NotImplementedError(
+          f"fused_attention / fused_update: {type(ac_module).__name__} has "
+          "no transformer layer to fuse (the JAX agent turns them off "
+          "quietly; the port refuses)")
     self.fused_attention, self.fused_update = fused_attention, fused_update
+    fused_kw = {"fused": fused_update} if has_fused else {}
 
     def apply_pi(m, x):
-      return m.pi(x, fused=fused_update)
+      return m.pi(x, **fused_kw)
 
     def apply_v(m, x):
-      return m.v(x, fused=fused_update)
+      return m.v(x, **fused_kw)
+
+    if has_fused:
+      def apply_pi_v(x):
+        return self.module.pi_v(x, fused=fused_attention)
+    else:
+      def apply_pi_v(x):
+        return self.module.pi(x), self.module.v(x)
 
     self.apply_pi = apply_pi
     self.learner = PPOLearner(cfg, apply_pi, apply_v, self.module)
@@ -151,7 +168,7 @@ class PPOAgent:
           f"Use --num_envs <= {cfg.epoch_frames // 64} for T >= 64.",
           stacklevel=2)
     self.rollout = rollout_lib.make_rollout_fn(
-        env, lambda x: self.module.pi_v(x, fused=fused_attention),
+        env, apply_pi_v,
         lambda x: apply_v(self.module, x), horizon, cfg.max_episode_frames,
         cfg.discount, env.cfg.proprio_dim, obs_norm=obs_norm,
         action_low=env.action_low, action_high=env.action_high,

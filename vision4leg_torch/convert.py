@@ -50,7 +50,8 @@ def dynamics(dyn, device="cpu") -> a1.DynamicsParams:
 def terrain(ts, device="cpu") -> TerrainState:
   spheres = getattr(ts, "obstacle_spheres", None)
   return TerrainState(
-      boxes=tensor(ts.boxes, device), subgoals=tensor(ts.subgoals, device),
+      boxes=tensor(ts.boxes, device), box_dirs=tensor(ts.box_dirs, device),
+      subgoals=tensor(ts.subgoals, device),
       goal_pos=tensor(ts.goal_pos, device),
       obstacle_spheres=(tensor(spheres, device) if spheres is not None
                         else torch.zeros(
@@ -58,7 +59,7 @@ def terrain(ts, device="cpu") -> TerrainState:
 
 
 # ---------------------------------------------------------------------------
-# flax LocoTransformerActorCritic params -> torch state_dict
+# flax actor-critic params -> torch state_dict
 # ---------------------------------------------------------------------------
 
 def _dense(sd, prefix, p):
@@ -106,6 +107,11 @@ def _attention_layer(sd, prefix, p):
   _dense(sd, f"{prefix}.ff2", p["Dense_1"])
 
 
+def _nature_from_flax(sd, prefix, p):
+  for i in range(3):
+    _conv(sd, f"{prefix}.convs.{i}", p[f"Conv_{i}"])
+
+
 def encoder_from_flax(enc: Mapping) -> Dict[str, torch.Tensor]:
   """state_dict of models.base.LocoTransformerEncoder, or of
   VisionTokenEncoder when the flax encoder has no proprio MLP, from the
@@ -114,21 +120,40 @@ def encoder_from_flax(enc: Mapping) -> Dict[str, torch.Tensor]:
   if "MLPBase_0" in enc:
     _mlp(sd, "state_mlp.layers", enc["MLPBase_0"])
     _dense(sd, "state_proj", enc["RLProjection_0"]["Dense_0"])
-  nat = enc["NatureEncoder_0"]
-  for i in range(3):
-    _conv(sd, f"nature.convs.{i}", nat[f"Conv_{i}"])
+  _nature_from_flax(sd, "nature", enc["NatureEncoder_0"])
   _conv(sd, "token_conv", enc["Conv_0"])
   return sd
 
 
+def _nature_heads_from_flax(sd, p):
+  for side in ("pf", "vf"):
+    _mlp(sd, f"{side}_mlp.layers", p[f"{side}_mlp"])
+  sd["head.logstd"] = torch.tensor(np.asarray(p["head"]["logstd"]).copy())
+
+
 def params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
-  """state_dict of models.actor_critic.LocoTransformerActorCritic, or of
-  VisionOnlyTransformerActorCritic when the encoder has no proprio MLP,
-  from the flax module's params (`variables["params"]`, or the whole
-  variables dict) pulled to numpy; layer counts are read from the params.
-  The torch LayerNorms use eps 1e-6 like flax's."""
+  """state_dict of a models.actor_critic module from the flax module's
+  params (`variables["params"]`, or the whole variables dict) pulled to
+  numpy, the module told by the params' layout:
+  LocoTransformerActorCritic, or VisionOnlyTransformerActorCritic when
+  the encoder has no proprio MLP (layer counts read from the params; the
+  torch LayerNorms use eps 1e-6 like flax's); NatureFuseActorCritic when
+  the encoder has a Nature CNN and no transformer layers follow it;
+  VisualNetActorCritic when a `backbone` takes the encoder's place."""
   p = np_params.get("params", np_params)
-  sd = {f"encoder.{k}": v for k, v in encoder_from_flax(p["encoder"]).items()}
+  sd: Dict[str, torch.Tensor] = {}
+  if "backbone" in p:
+    _nature_from_flax(sd, "backbone", p["backbone"])
+    _nature_heads_from_flax(sd, p)
+    return sd
+  enc = p["encoder"]
+  if "Conv_0" not in enc:   # no token conv: the Nature-CNN trunk
+    _nature_from_flax(sd, "encoder.nature", enc["NatureEncoder_0"])
+    _dense(sd, "encoder.projection.dense", enc["RLProjection_0"]["Dense_0"])
+    _mlp(sd, "encoder.state_mlp.layers", enc["MLPBase_0"])
+    _nature_heads_from_flax(sd, p)
+    return sd
+  sd = {f"encoder.{k}": v for k, v in encoder_from_flax(enc).items()}
   n_layers = sum(1 for k in p if k.startswith("pf_layers_"))
   for side in ("pf", "vf"):
     for li in range(n_layers):

@@ -12,9 +12,19 @@ Observation layout (sorted sensor names, env_utils.py:27-50):
   [GoalPos(6)?] [HSW(BaseDisplacement)(9)?] [HSW(IMU)(12)]
   [HSW(LastAction)(36)?] [HSW(MotorAngle)(36)] [raw_img(4*64*64)?]
 
-Randomness: every draw goes through `draw_reset` and `draw_blind_spots`
+The MMDR options (the reference's frame_extract configs): the depth ring
+holds 4 * frame_extract frames; the observation takes four of them per
+env at `frame_idx` (E, 4), drawn at reset with a fixed or random delay
+(`reset_frame_idx`, `fixed_delay_observation`), redrawn at its head every
+step with `reset_frame_idx_each_step`, and with `interpolation` each of
+the four is the mean of frames idx .. idx + interp_delay.  With `moving`
+the first 50 boxes move every step (`terrain.moving_blocks_step`) and
+the window, the camera and the stored terrain all see the moved boxes.
+
+Randomness: every draw goes through `draw_reset`, `draw_frame_delays`
+and `draw_step` (which takes the blind spots from `draw_blind_spots`)
 from an explicit torch.Generator; a test substitutes them to replay the
-JAX package's draws.
+JAX package's draws.  Each draws only what the config turns on.
 """
 from __future__ import annotations
 
@@ -118,14 +128,25 @@ class EnvConfig:
 
 # options of the JAX env this port does not run yet (ROADMAP queue 1 items
 # 3-4)
-_UNPORTED = ("enable_action_filter", "reset_frame_idx",
-             "reset_frame_idx_each_step", "random_shape", "moving",
-             "interpolation", "random_dir", "rotate_sensor")
+_UNPORTED = ("enable_action_filter", "random_dir", "rotate_sensor")
 
 
 class BlindSpots(NamedTuple):
   num: torch.Tensor   # (E,) int, spots in [3, 30)
   idx: torch.Tensor   # (E, 30, 2) int, (row, col)
+
+
+class FrameDraws(NamedTuple):
+  """The MMDR delays of a reset; None where the config draws none."""
+  offset: Optional[torch.Tensor]        # (E, 4) int in [0, frame_extract)
+  interp_delay: Optional[torch.Tensor]  # (E,) int in [0, frame_extract)
+
+
+class StepDraws(NamedTuple):
+  """All randomness of a step; None where the config draws none."""
+  blind: Optional[BlindSpots]
+  move_dirs: Optional[torch.Tensor]     # (E, K) int in [0, 20)
+  frame_head: Optional[torch.Tensor]    # (E,) int in [1, frame_extract)
 
 
 class ResetDraws(NamedTuple):
@@ -149,6 +170,8 @@ class EnvState:
   last_action: torch.Tensor       # (E, 12)
   last_base_pos: torch.Tensor     # (E, 3)
   frames: torch.Tensor            # (E, num_stored, 64, 64) or (E, 1, 1, 1)
+  frame_idx: torch.Tensor         # (E, 4) int32 ring slots observed
+  interp_delay: torch.Tensor      # (E,) int32
   step_counter: torch.Tensor      # (E,) int32
 
   def replace(self, **kw) -> "EnvState":
@@ -191,6 +214,12 @@ class A1GymEnv:
       raise NotImplementedError(
           "rgbd=True: the JAX env accepts and ignores it; the port rejects "
           "it (ROADMAP queue 3)")
+    if cfg.random_shape:
+      raise NotImplementedError(
+          "random_shape=True: the JAX env accepts and ignores it (its "
+          "terrain generators never pass it to gen_blocks_sparse, so the "
+          "thin-random-shape configs run on plain pillars there); the port "
+          "rejects it (ROADMAP queue 3)")
     if cfg.terrain_type not in terr.TERRAIN_GENERATORS:
       raise NotImplementedError(
           f"terrain {cfg.terrain_type!r} is not ported yet; non-flat and "
@@ -221,6 +250,20 @@ class A1GymEnv:
   def obs_dim(self) -> int:
     return self.cfg.obs_dim
 
+  @property
+  def _random_delay(self) -> bool:
+    """A reset draws each env's frame delays (JAX env.py:318-326)."""
+    cfg = self.cfg
+    return (cfg.reset_frame_idx and cfg.frame_extract > 1
+            and not cfg.fixed_delay_observation)
+
+  @property
+  def _each_step_head(self) -> bool:
+    """A step redraws the head of the frame indices (JAX env.py:554)."""
+    cfg = self.cfg
+    return (cfg.get_image and cfg.reset_frame_idx_each_step
+            and cfg.frame_extract > 1)
+
   # ------------------------------------------------------------------
   def settled_template(self) -> a1.RobotState:
     """Settle one robot to contact equilibrium on flat ground once (the
@@ -245,8 +288,8 @@ class A1GymEnv:
   # ------------------------------------------------------------------
   def draw_reset(self, n_env: int, gen: torch.Generator) -> ResetDraws:
     cfg = self.cfg
-    terrain = terr.TERRAIN_GENERATORS[cfg.terrain_type](gen, n_env,
-                                                        self.device)
+    terrain = terr.TERRAIN_GENERATORS[cfg.terrain_type](
+        gen, n_env, self.device, moving=cfg.moving)
     dyn = dynamics_rando.maybe_sample(self.model, gen, n_env,
                                       cfg.domain_randomization,
                                       cfg.fixed_delay_observation)
@@ -262,11 +305,54 @@ class A1GymEnv:
         idx=torch.randint(0, cam.IMG_SIZE, (n_env, n, 2), generator=gen,
                           device=self.device))
 
+  def draw_frame_delays(self, n_env: int, gen: torch.Generator
+                        ) -> FrameDraws:
+    cfg = self.cfg
+    fe = cfg.frame_extract
+    offset = (torch.randint(0, fe, (n_env, 4), generator=gen,
+                            device=self.device)
+              if self._random_delay else None)
+    interp = (torch.randint(0, fe, (n_env,), generator=gen,
+                            device=self.device)
+              if cfg.interpolation else None)
+    return FrameDraws(offset, interp)
+
+  def draw_step(self, n_env: int, n_boxes: int, gen: torch.Generator
+                ) -> StepDraws:
+    cfg = self.cfg
+    move = (torch.randint(0, terr.NUM_DIRECTIONS, (n_env, n_boxes),
+                          generator=gen, device=self.device)
+            if cfg.moving else None)
+    head = (torch.randint(1, cfg.frame_extract, (n_env,), generator=gen,
+                          device=self.device)
+            if self._each_step_head else None)
+    blind = self.draw_blind_spots(n_env, gen) if cfg.get_image else None
+    return StepDraws(blind, move, head)
+
+  def _frame_idx(self, n_env: int, draws: FrameDraws):
+    """(frame_idx (E, 4), interp_delay (E,)) of a reset (JAX env.py
+    :315-328): slots k * fe, moved by fe - 1 with a fixed delay or by the
+    drawn offsets with a random one."""
+    cfg = self.cfg
+    fe = cfg.frame_extract
+    base = torch.arange(4, dtype=torch.int32, device=self.device) * fe
+    if cfg.reset_frame_idx and fe > 1 and cfg.fixed_delay_observation:
+      base = base + (fe - 1)
+    idx = base.expand(n_env, 4)
+    if draws.offset is not None:
+      idx = idx + draws.offset.to(torch.int32)
+    interp = (draws.interp_delay.to(torch.int32)
+              if draws.interp_delay is not None
+              else torch.zeros(n_env, dtype=torch.int32, device=self.device))
+    return idx.contiguous(), interp
+
   def reset(self, n_env: int, gen: torch.Generator
             ) -> Tuple[EnvState, torch.Tensor]:
     """A batch of n_env fresh envs and their observations (E, obs_dim)."""
     cfg = self.cfg
     draws = self.draw_reset(n_env, gen)
+    frame_idx, interp_delay = self._frame_idx(
+        n_env, self.draw_frame_delays(n_env, gen))
     template = self.settled_template()
     E = n_env
     pos_xy = self._init_pos[:2] + draws.init_jitter
@@ -290,6 +376,7 @@ class A1GymEnv:
         disp_hist=torch.zeros(E, 3, 3, device=self.device),
         last_action_hist=torch.zeros(E, 3, 12, device=self.device),
         last_action=cmd, last_base_pos=pos.clone(), frames=frames,
+        frame_idx=frame_idx, interp_delay=interp_delay,
         step_counter=torch.zeros(E, dtype=torch.int32, device=self.device))
     m, imu, disp = self._sensor_readings(state)
     state = state.replace(
@@ -329,9 +416,29 @@ class A1GymEnv:
     return depth
 
   def _image_obs(self, state: EnvState):
+    return self._gather_frames(state.frames, state.frame_idx,
+                               state.interp_delay)
+
+  def _gather_frames(self, frames, frame_idx, interp_delay):
+    """The four observed frames of each env, flattened (E, 4 * 64 * 64):
+    frames[e, frame_idx[e]], or with interpolation the mean of frames
+    idx .. idx + interp_delay[e] (clipped to the ring; JAX env.py
+    :417-436), then the depth normalization."""
     cfg = self.cfg
-    frame_idx = torch.arange(4, device=self.device) * cfg.frame_extract
-    img = state.frames[:, frame_idx].reshape(state.frames.shape[0], -1)
+    E = frames.shape[0]
+    rows = torch.arange(E, device=frames.device)
+    idx = frame_idx.long()
+    if cfg.interpolation:
+      offs = torch.arange(cfg.frame_extract, device=frames.device)
+      mask = (offs[None] <= interp_delay[:, None]).float()    # (E, fe)
+      slots = torch.clamp(idx[:, :, None] + offs, 0,
+                          cfg.num_stored_frames - 1)          # (E, 4, fe)
+      sel = frames[rows[:, None, None], slots]                # (E,4,fe,H,W)
+      img = (torch.sum(sel * mask[:, None, :, None, None], dim=2)
+             / (interp_delay + 1).float()[:, None, None, None])
+    else:
+      img = frames[rows[:, None], idx]
+    img = img.reshape(E, -1)
     if cfg.depth_norm and cfg.depth_image:
       img = (img - 1.25) / 0.425
     return img
@@ -361,10 +468,16 @@ class A1GymEnv:
     return torch.minimum(torch.maximum(action, self._act_lb12),
                          self._act_ub12)
 
-  def _step_pre(self, state: EnvState, action):
+  def _step_pre(self, state: EnvState, action, draws: StepDraws):
+    """The action expansion and, with `moving`, the obstacles' step on the
+    counter before its increment (JAX env.py:477-479); the moved terrain
+    is stored, so the window, the camera and the next step all see it."""
     act12 = self._expand_action(action)
     state = state.replace(last_action=act12,
                           last_base_pos=state.robot.phys.pos)
+    if self.cfg.moving:
+      state = state.replace(terrain=terr.moving_blocks_step(
+          state.terrain, state.step_counter, draws.move_dirs))
     return state, act12
 
   def _pruned_boxes(self, boxes, base_xy):
@@ -384,7 +497,9 @@ class A1GymEnv:
     all envs, sensors, task, camera.  Returns (states, obs (E, D),
     reward (E,), done (E,) bool, info)."""
     cfg = self.cfg
-    states, act12 = self._step_pre(states, actions)
+    draws = self.draw_step(actions.shape[0], states.terrain.boxes.shape[1],
+                           gen)
+    states, act12 = self._step_pre(states, actions, draws)
     pos_xy = states.robot.phys.pos[:, :2]
     boxes = self._pruned_boxes(states.terrain.boxes, pos_xy)
     spheres = states.terrain.obstacle_spheres
@@ -394,11 +509,9 @@ class A1GymEnv:
         self.model, states.robot, act12, states.dyn, boxes, spheres,
         fric_ground, fric_box, cfg.num_action_repeat * cfg.substeps,
         cfg.enable_action_interpolation)
-    blind = self.draw_blind_spots(act12.shape[0], gen) if cfg.get_image \
-        else None
-    return self._step_post(states, rs, act12, pen, blind)
+    return self._step_post(states, rs, act12, pen, draws)
 
-  def _step_post(self, state: EnvState, rs, act12, pen, blind):
+  def _step_post(self, state: EnvState, rs, act12, pen, draws: StepDraws):
     cfg = self.cfg
     ground_pen, box_pen = pen[..., 0], pen[..., 1]
     nonfoot_ground = torch.any((ground_pen > 0)
@@ -424,7 +537,15 @@ class A1GymEnv:
                           step_counter=state.step_counter + 1)
     if cfg.get_image:
       capture = (state.step_counter % cfg.get_image_interval) == 0
-      depth = self._render(state, blind)
+      if self._each_step_head:
+        # per-step random visual delay (JAX env.py:554-562)
+        shifted = torch.cat([draws.frame_head.to(torch.int32)[:, None],
+                             state.frame_idx[:, :3] + cfg.frame_extract],
+                            dim=1)
+        state = state.replace(frame_idx=select(capture, shifted,
+                                               state.frame_idx))
+      depth = self._render(state, draws.blind)
+      # the whole ring is copied, as the JAX env's concatenate does
       frames = torch.cat([depth[:, None], state.frames[:, :-1]], dim=1)
       state = state.replace(frames=select(capture, frames, state.frames))
     info = {"subgoals_hit": torch.sum(1.0 - trackers, dim=-1)}

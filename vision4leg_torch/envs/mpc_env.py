@@ -87,7 +87,19 @@ class MpcEnvState:
 class A1MPCGymEnv(A1GymEnv):
   """Batched A1MoveGroundMPC on one device."""
 
+  # options the JAX MPC env accepts and ignores (its frame indices are
+  # fixed at k * frame_extract, its interpolation delay 0, its obstacles
+  # still); the port rejects them
+  _IGNORED_BY_JAX = ("reset_frame_idx", "reset_frame_idx_each_step",
+                     "interpolation", "moving")
+
   def __init__(self, cfg: MpcEnvConfig, device=None):
+    ignored = [k for k in self._IGNORED_BY_JAX if getattr(cfg, k)]
+    if ignored:
+      raise NotImplementedError(
+          f"A1MoveGroundMPC options {ignored}: the JAX MPC env accepts and "
+          "ignores them; the port rejects them (no shipped config sets "
+          "them)")
     self._setup(cfg, device)
     clip = np.asarray(cfg.clip_num if cfg.clip_num is not None
                       else (0.3, 0.4), np.float32)
@@ -170,6 +182,15 @@ class A1MPCGymEnv(A1GymEnv):
       state = state.replace(frames=depth[:, None].expand(
           E, cfg.num_stored_frames, 64, 64).clone())
     return state, self._observation(state)
+
+  def _image_obs(self, state: MpcEnvState):
+    """The frames at k * frame_extract (JAX mpc_env.py:144, 166-167)."""
+    E = state.frames.shape[0]
+    idx = (torch.arange(4, dtype=torch.int32, device=self.device)
+           * self.cfg.frame_extract).expand(E, 4)
+    return self._gather_frames(state.frames, idx,
+                               torch.zeros(E, dtype=torch.int32,
+                                           device=self.device))
 
   def _observation(self, state: MpcEnvState):
     cfg = self.cfg

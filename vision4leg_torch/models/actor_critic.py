@@ -1,10 +1,14 @@
-"""LocoTransformer actor-critics (torch mirror of
-vision4leg_tpu.models.actor_critic.LocoTransformerActorCritic and
+"""Actor-critics (torch mirror of vision4leg_tpu.models.actor_critic):
+the LocoTransformer ones (LocoTransformerActorCritic,
 VisionOnlyTransformerActorCritic; reference ppo_locotransformer.py:79-101
-and ppo_locotransformer_vision_only.py): one shared tokenizer; separate
-transformer stacks and MLP heads for policy and value; a learnable
-state-independent logstd initialized to log(0.125), clamped to [-5, 2]
-(continuous_policy.py:8-9, 239-254)."""
+and ppo_locotransformer_vision_only.py: one shared tokenizer, separate
+transformer stacks and MLP heads for policy and value) and the Nature-CNN
+baselines (NatureFuseActorCritic, VisualNetActorCritic; reference
+ppo_nature_cnn.py and ppo_nature_cnn_vision_only.py: one shared encoder,
+separate MLP heads).  Each policy has a learnable state-independent logstd
+initialized to log(0.125), clamped to [-5, 2] (continuous_policy.py:8-9,
+239-254).  The Nature-CNN models, like the JAX package's, have no `pi_v`
+and no fused layer."""
 from __future__ import annotations
 
 import math
@@ -15,8 +19,9 @@ from torch import nn
 
 from vision4leg_torch.models import init as winit
 from vision4leg_torch.models.base import (LocoTransformerEncoder,
+                                          NatureEncoder, NatureFuseEncoder,
                                           TransformerEncoderLayer,
-                                          VisionTokenEncoder)
+                                          VisionTokenEncoder, nature_out_dim)
 
 LOG_SIG_MAX = 2.0
 LOG_SIG_MIN = -5.0
@@ -206,3 +211,103 @@ class VisionOnlyTransformerActorCritic(nn.Module):
     return (gaussian_head(self.logstd, self._stack(t, self.pf_layers,
                                                    self.pf_mlp, fused)),
             self._stack(t, self.vf_layers, self.vf_mlp, fused))
+
+
+class GaussianHead(nn.Module):
+  """The state-independent logstd of the Nature-CNN policies, a module of
+  its own as the JAX package's `head` (so `param_labels` gives it to the
+  policy's optimizer under the same name)."""
+
+  def __init__(self, action_dim: int, log_init: float = 0.125):
+    super().__init__()
+    self.logstd = nn.Parameter(torch.full((action_dim,), math.log(log_init)))
+
+  def forward(self, mean):
+    return gaussian_head(self.logstd, mean)
+
+
+class NatureFuseActorCritic(nn.Module):
+  """ppo_nature_cnn: shared NatureFuseEncoder + separate MLP heads
+  (starter/ppo_nature_cnn.py:81-100)."""
+
+  def __init__(self, action_dim: int, state_input_shape: int,
+               visual_input_shape: Tuple[int, int, int] = (4, 64, 64),
+               encoder_hidden_shapes: Sequence[int] = (256, 256),
+               visual_dim: int = 256,
+               append_hidden_shapes: Sequence[int] = (256, 256),
+               log_init: float = 0.125,
+               generator: torch.Generator | None = None):
+    super().__init__()
+    self.state_input_shape = state_input_shape
+    self.visual_input_shape = tuple(visual_input_shape)
+    self.encoder = NatureFuseEncoder(visual_input_shape, state_input_shape,
+                                     encoder_hidden_shapes, visual_dim)
+    self.head = GaussianHead(action_dim, log_init)
+    self.pf_mlp = MLPHead(self.encoder.out_dim, append_hidden_shapes,
+                          action_dim)
+    self.vf_mlp = MLPHead(self.encoder.out_dim, append_hidden_shapes, 1)
+    if generator is not None:
+      self.init_weights(generator)
+
+  def init_weights(self, gen: torch.Generator):
+    """The reference's initializers, drawn from `gen`."""
+    self.encoder.init_weights(gen)
+    self.pf_mlp.init_weights(gen)
+    self.vf_mlp.init_weights(gen)
+
+  def _features(self, x):
+    state_x = x[..., : self.state_input_shape]
+    visual_x = x[..., self.state_input_shape:].reshape(
+        x.shape[:-1] + self.visual_input_shape)
+    return self.encoder(visual_x, state_x)
+
+  def pi(self, x):
+    """-> (mean, std, logstd)."""
+    return self.head(self.pf_mlp(self._features(x)))
+
+  def v(self, x):
+    """-> (B, 1) value."""
+    return self.vf_mlp(self._features(x))
+
+
+class VisualNetActorCritic(nn.Module):
+  """ppo_nature_cnn_vision_only: MLP heads over one shared NatureEncoder's
+  flattened output (continuous_policy.py:257, nets.py:133-191).  As in the
+  reference and the JAX package there is no projection: the heads take the
+  1024-wide conv flatten (the config's visual_dim has no place here).  The
+  proprio head of the observation is ignored."""
+
+  def __init__(self, action_dim: int, state_input_shape: int,
+               visual_input_shape: Tuple[int, int, int] = (4, 64, 64),
+               append_hidden_shapes: Sequence[int] = (256, 256),
+               log_init: float = 0.125,
+               generator: torch.Generator | None = None):
+    super().__init__()
+    self.state_input_shape = state_input_shape
+    self.visual_input_shape = tuple(visual_input_shape)
+    self.backbone = NatureEncoder(visual_input_shape[0])
+    width = nature_out_dim(visual_input_shape)
+    self.head = GaussianHead(action_dim, log_init)
+    self.pf_mlp = MLPHead(width, append_hidden_shapes, action_dim)
+    self.vf_mlp = MLPHead(width, append_hidden_shapes, 1)
+    if generator is not None:
+      self.init_weights(generator)
+
+  def init_weights(self, gen: torch.Generator):
+    """The reference's initializers, drawn from `gen`."""
+    self.backbone.init_weights(gen)
+    self.pf_mlp.init_weights(gen)
+    self.vf_mlp.init_weights(gen)
+
+  def _features(self, x):
+    visual_x = x[..., self.state_input_shape:].reshape(
+        x.shape[:-1] + self.visual_input_shape)
+    return self.backbone(visual_x).flatten(1)
+
+  def pi(self, x):
+    """-> (mean, std, logstd)."""
+    return self.head(self.pf_mlp(self._features(x)))
+
+  def v(self, x):
+    """-> (B, 1) value."""
+    return self.vf_mlp(self._features(x))

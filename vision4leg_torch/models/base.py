@@ -52,6 +52,53 @@ class NatureEncoder(nn.Module):
     return x
 
 
+def nature_out_dim(visual_input_shape) -> int:
+  """Width of NatureEncoder's flattened output on (C, H, W) inputs."""
+  _, h, w = visual_input_shape
+  for k, st in ((8, 4), (4, 2), (3, 1)):
+    h, w = (h - k) // st + 1, (w - k) // st + 1
+  return 64 * h * w
+
+
+class RLProjection(nn.Module):
+  """Linear + ReLU projection (base.py:209-230)."""
+
+  def __init__(self, in_dim: int, out_dim: int):
+    super().__init__()
+    self.dense = nn.Linear(in_dim, out_dim)
+
+  def init_weights(self, gen):
+    winit.fanin_uniform_(self.dense, gen)
+
+  def forward(self, x):
+    return torch.relu(self.dense(x))
+
+
+class NatureFuseEncoder(nn.Module):
+  """Nature CNN on the depth frames, flattened in (C, H, W) order and
+  projected to visual_dim, beside a proprio MLP; the two concatenated
+  (base.py:345-386): the `ppo_nature_cnn` baseline's shared trunk.
+  Output (B, visual_dim + hidden_shapes[-1])."""
+
+  def __init__(self, visual_input_shape, state_dim: int,
+               hidden_shapes: Sequence[int], visual_dim: int = 256):
+    super().__init__()
+    self.nature = NatureEncoder(visual_input_shape[0])
+    self.projection = RLProjection(nature_out_dim(visual_input_shape),
+                                   visual_dim)
+    self.state_mlp = MLPBase(state_dim, hidden_shapes)
+    self.out_dim = visual_dim + self.state_mlp.out_dim
+
+  def init_weights(self, gen):
+    self.nature.init_weights(gen)
+    self.projection.init_weights(gen)
+    self.state_mlp.init_weights(gen)
+
+  def forward(self, visual_x, state_x):
+    v = self.projection(self.nature(visual_x).flatten(1))
+    return torch.cat([v, self.state_mlp(state_x)], dim=-1)
+
+
 class LocoTransformerEncoder(nn.Module):
   """Tokenizer (base.py:497-627) for one depth modality: a projected
   proprio token, then the 16 spatial tokens of NatureEncoder -> 1x1 conv.

@@ -70,6 +70,22 @@ def locotransformer_kwargs(env, params: dict) -> dict:
       **params.get("policy", {}))
 
 
+def nature_kwargs(env, params: dict) -> dict:
+  """The Nature-CNN actor-critics' arguments from a JSON config (4 depth
+  frames; rgbd is rejected by the env)."""
+  enc = params.get("encoder", {})
+  net = params.get("net", {})
+  return dict(
+      action_dim=env.cfg.action_dim,
+      state_input_shape=env.cfg.proprio_dim,
+      visual_input_shape=(4, 64, 64),
+      encoder_hidden_shapes=tuple(enc.get("hidden_shapes", (256, 256))),
+      visual_dim=enc.get("visual_dim", 256),
+      append_hidden_shapes=tuple(net.get("append_hidden_shapes",
+                                         (256, 256))),
+      **params.get("policy", {}))
+
+
 def run_experiment(build_module):
   """build_module(env, params) -> uninitialized torch actor-critic."""
   args = get_args()
