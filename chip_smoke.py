@@ -132,16 +132,35 @@ Phases, each printed with the seconds since start:
      both with the Nature-CNN model, and a 4-step collection of
      config/mpc_vision_only/baseline/thin-goal.json with the vision-only
      Nature-CNN model (4 x 20 hybrid launches, settles counted apart);
- 16. one JSON line with every kernel's numbers (launches summed over the
+ 16. the mountain (`phase_training` as in phase 6): config/rl/challenge/
+     locotransformer/mountain.json, the LocoTransformer at full width,
+     1024 envs, fused layer on, one epoch and an eval of 32 x 8 on the
+     per-env engine and the heightfield camera: the window's launches
+     held to 0, the layer's exactly; then a fresh reset of 1024 envs
+     stands every base within 2 cm of the template's height above its
+     own ground, and three more steps give the non-flat step's split
+     on the host clock (engine window / camera / rest) and the march
+     alone on CUDA events (`check_nonflat`, `time_nonflat_step`);
+ 17. one 16-step collection at 1024 envs of config/rl/static/
+     frame_extract4_random_delay/thin-heightfield.json (Nature-CNN, the
+     per-env grids) and of state-only-baseline.json (StateActorCritic, no
+     camera), the window never launched, torch.cuda.max_memory_allocated
+     printed, each step's split as in phase 16;
+ 18. one 16-step collection at 1024 envs each of config/rl/challenge/
+     locotransformer/stairs.json and chair_desk.json on the window (16
+     launches each); the window against its plain version by
+     `compare_with_plain` on `stairs_case` (a toe of every env on a step's
+     edge); two calls give the same bits; timed as in phase 3;
+ 19. one JSON line with every kernel's numbers (launches summed over the
      paths, with each path's count and the shapes run), then the last
      line {"ok": true, "device": {...}}.
 
 Cuts of depth: training runs two epochs (thin-goal, MPC) or one
-(vision-only, MMDR, Nature-CNN) of the configs' 1500; the non-MPC evals
-32 of 999 steps and the MPC evals 4 (an MPC step is host-bound at
-~0.25-0.5 s); MPC collection one 8-step rollout, the vision-only
-baseline's 4 steps; the MPC walk 20 steps at 64 envs.  Widths are the
-configs' own.
+(vision-only, MMDR, Nature-CNN, mountain) of the configs' 1500; the
+non-MPC evals 32 of 999 steps and the MPC evals 4 (an MPC step is
+host-bound at ~0.25-0.5 s); MPC collection one 8-step rollout, the
+vision-only baseline's 4 steps; the MPC walk 20 steps at 64 envs.
+Widths are the configs' own.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
 below), since outputs are compared; phase 7 turns cuDNN's TF32 on for
@@ -857,7 +876,7 @@ def phase_training(label, env, meta, params, build_module, epochs,
     horizon = a.horizon
     rows, n_batches = minibatches(cfg, horizon, NUM_ENVS)
     n_mb, mb = cfg.opt_epochs * n_batches, rows * NUM_ENVS
-    per_step = env.cfg.policy_freq if mpc else 1
+    per_step = env.cfg.policy_freq if mpc else int(env.kernel_capable)
     per_epoch_layer = (4 * horizon + 2 + 4 * n_mb) + 2 * eval_horizon
     want = {"physics_window": epochs * (horizon + eval_horizon) * per_step,
             "physics_window_settle": settles,
@@ -938,11 +957,14 @@ def phase_training(label, env, meta, params, build_module, epochs,
     if diff or ca != cb or set(sa) != set(sb):
       raise AssertionError(f"[{label}] restored state differs: {diff[:5]} "
                            f"{ca} {cb}")
-    log(f"[{label}] checkpoint restored into a second agent: {len(sa)} "
-        f"tensors (params, both Adam states, collector with the env "
-        f"states) equal; counts {cb}")
+    size = os.path.getsize(os.path.join(a.save_dir, "checkpoint"))
+    log(f"[{label}] checkpoint ({size / 2 ** 20:.1f} MiB at {NUM_ENVS} "
+        f"envs) restored into a second agent: {len(sa)} tensors (params, "
+        f"both Adam states, collector with the env states) equal; counts "
+        f"{cb}")
   launches["epochs"] = epoch_rows
   launches["minibatch"] = mb
+  launches["checkpoint_mib"] = size / 2 ** 20
   launches["checked"] = checked
   return launches
 
@@ -1377,6 +1399,8 @@ def phase_collection(label, config, build_module, horizon, card, dev,
       action_high=env.action_high, env_time_limit=meta["horizon"],
       reward_scale=meta["reward_scale"])
   gen = torch.Generator(device=dev).manual_seed(0)
+  torch.cuda.reset_peak_memory_stats()
+  held = torch.cuda.memory_allocated()
   t = time.perf_counter()
   cs = rollout_lib.init_collector(env, NUM_ENVS, gen)
   torch.cuda.synchronize()
@@ -1393,7 +1417,7 @@ def phase_collection(label, config, build_module, horizon, card, dev,
   settles = (env.settle_windows - settles) if mpc else 0
   launches = {"physics_window": pk.robot_window.launches - settles,
               "physics_window_settle": settles}
-  per_step = env.cfg.policy_freq if mpc else 1
+  per_step = env.cfg.policy_freq if mpc else int(env.kernel_capable)
   rate = horizon * NUM_ENVS / dt
   log(f"[{label}] rollout: {horizon} steps x {NUM_ENVS} envs in {dt:.3f}s "
       f"= {rate:.1f} env-steps/s on {card} ({type(net).__name__}); "
@@ -1411,8 +1435,16 @@ def phase_collection(label, config, build_module, horizon, card, dev,
   if traj.obs.shape != (horizon, NUM_ENVS, env.obs_dim) or not \
       torch.isfinite(last_v).all():
     raise AssertionError(f"[{label}] obs shape {tuple(traj.obs.shape)}")
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  added = peak - held / 2 ** 30
+  log(f"[{label}] torch.cuda.max_memory_allocated over init_collector and "
+      f"the rollout: {peak:.3f} GiB, {added:.3f} GiB above what was "
+      f"allocated before; terminals {int(traj.terminals.sum())} of "
+      f"{horizon * NUM_ENVS}")
+  launches["max_memory_gib"] = peak
+  launches["added_memory_gib"] = added
   if check is not None:
-    check(env, cs, traj)
+    launches["checked"] = check(env, cs, traj)
   return launches, rate
 
 
@@ -1459,6 +1491,170 @@ def check_fixed_delay(env, cs, traj):
   log(f"[fixed delay] frame_idx {want.tolist()} on every env")
 
 
+MOUNTAIN_CONFIG = "config/rl/challenge/locotransformer/mountain.json"
+HEIGHTFIELD_CONFIG = \
+    "config/rl/static/frame_extract4_random_delay/thin-heightfield.json"
+STATE_CONFIG = "config/rl/static/state-only-baseline.json"
+STAIRS_CONFIG = "config/rl/challenge/locotransformer/stairs.json"
+CHAIR_DESK_CONFIG = "config/rl/challenge/locotransformer/chair_desk.json"
+STANDING_BAND = 0.02   # base height above the local ground after a reset
+SPLIT_STEPS = 3        # steps timed for the non-flat step's split
+
+
+def time_nonflat_step(env, states, label):
+  """The non-flat step's host-clock split at the batch of `states`: the
+  engine window (`_engine_window`: 16 substeps of the per-env engine and
+  the post-window contact read), the camera (`_render`: the heightfield
+  march, boxes, preprocessing) and the rest of `step_batch`, each
+  between synchronizes, over SPLIT_STEPS steps; then the march alone
+  (`camera._ray_heightfield_t` on the same poses).  Returns ms per step."""
+  import torch
+  from vision4leg_torch.envs import camera as cam
+  from vision4leg_torch.envs import terrain as terr
+  from vision4leg_torch.physics import maths
+  spent = {"physics": 0.0, "camera": 0.0}
+
+  def timed(name, fn):
+    def run(*a, **kw):
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      out = fn(*a, **kw)
+      torch.cuda.synchronize()
+      spent[name] += time.perf_counter() - t
+      return out
+    return run
+
+  engine_window, render = env._engine_window, env._render
+  env._engine_window = timed("physics", engine_window)
+  env._render = timed("camera", render)
+  gen = torch.Generator(device=env.device).manual_seed(17)
+  low, high = env.action_low, env.action_high
+  E = states.step_counter.shape[0]
+  try:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(SPLIT_STEPS):
+      act = low + (high - low) * torch.rand(E, low.shape[0], generator=gen,
+                                            device=env.device)
+      states, obs, _, _, _ = env.step_batch(states, act, gen)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t
+  finally:
+    del env._engine_window, env._render
+  if not bool(torch.isfinite(obs).all()):
+    raise AssertionError(f"[{label}] non-finite observations")
+  ms = {k: v / SPLIT_STEPS * 1e3 for k, v in spent.items()}
+  ms["rest"] = total / SPLIT_STEPS * 1e3 - ms["physics"] - ms["camera"]
+  ms["step"] = total / SPLIT_STEPS * 1e3
+  if env.cfg.get_image:
+    eye, dirs = cam.camera_rays(states.robot.phys.pos,
+                                maths.quat_to_mat(states.robot.phys.quat))
+    h_fn = terr.heightfield_fns(states.terrain)[0]
+    ms["march"] = time_ms(lambda: cam._ray_heightfield_t(eye, dirs, h_fn),
+                          n=5, warm=1)
+  log(f"[{label}] non-flat step at {E} envs on the host clock, "
+      f"{SPLIT_STEPS} steps: {ms['step']:.1f} ms a step = engine window "
+      f"{ms['physics']:.1f} + camera {ms['camera']:.1f} + rest "
+      f"{ms['rest']:.1f} ms"
+      + (f"; the heightfield march alone {ms['march']:.2f} ms (CUDA "
+         f"events, 5 calls)" if "march" in ms else ""))
+  return ms
+
+
+def check_nonflat(env, states, label):
+  """A fresh reset of NUM_ENVS envs stands every base within STANDING_BAND
+  of the settled template's height above its own ground; then the step's
+  split (`time_nonflat_step`) from the trained `states`."""
+  import torch
+  from vision4leg_torch.envs import terrain as terr
+  gen = torch.Generator(device=env.device).manual_seed(19)
+  fresh, _ = env.reset(NUM_ENVS, gen)
+  pos = fresh.robot.phys.pos
+  above = pos[:, 2] - terr.heightfield_fns(fresh.terrain)[0](
+      pos[:, None, :2])[:, 0]
+  want = float(env.settled_template().phys.pos[2])
+  off = float((above - want).abs().max())
+  log(f"[{label}] after a reset of {NUM_ENVS} envs: base height above the "
+      f"local ground {float(above.min()):.4f}..{float(above.max()):.4f} m "
+      f"(the template stands at {want:.4f} m; max off {off:.2e} m); base z "
+      f"{float(pos[:, 2].min()):.3f}..{float(pos[:, 2].max()):.3f} m")
+  if not off <= STANDING_BAND:
+    raise AssertionError(f"[{label}] a base stands {off} m off the "
+                         "template's height above its ground")
+  del fresh
+  return dict(time_nonflat_step(env, states, label), standing_off_m=off)
+
+
+def stairs_case(env, states, seed=23):
+  """Window inputs of the stairs env in which a toe of every env stands on
+  a step's edge: the 7 slabs as the env's window sees them, the settled
+  template's pose varied per env (joint angles, velocities) and shifted
+  so that a random toe lies within 3 cm of a random one of the 7 step
+  edges, its sphere 1 cm inside to 0.5 cm above the higher step's top;
+  the commands random within 0.3 rad of the standing pose."""
+  import torch
+  from vision4leg_torch.physics import engine
+  from vision4leg_torch.robots import a1
+  dev = env.device
+  g = torch.Generator().manual_seed(seed)
+  E = states.step_counter.shape[0]
+  u = lambda lo, hi, *shape: (lo + (hi - lo) * torch.rand(
+      *shape, generator=g)).to(dev)
+  tmpl = env.settled_template()
+  rows = torch.arange(E, device=dev)
+  phys = engine.PhysState(
+      pos=tmpl.phys.pos.expand(E, 3).clone(),
+      quat=tmpl.phys.quat.expand(E, 4).clone(),
+      joint_q=tmpl.phys.joint_q + u(-0.1, 0.1, E, 12),
+      ang=u(-0.3, 0.3, E, 3), lin=u(-0.3, 0.3, E, 3),
+      joint_qd=u(-1.0, 1.0, E, 12))
+  toes, _, _ = engine.contact_points_world(
+      env.model, phys, engine.fwd_kinematics(env.model, phys))
+  toe = toes[rows, torch.randint(4, (E,), generator=g).to(dev)]
+  boxes = states.terrain.boxes
+  # the step edges: each slab's rising (k = 0..3) or falling (k = 3..6) end
+  k = torch.randint(7, (E,), generator=g).to(dev)
+  side = torch.where(k < 4, -1.0, 1.0)
+  edge_x = boxes[rows, k, 0] + side * boxes[rows, k, 3]
+  x = edge_x + u(-0.03, 0.03, E)
+  inside = ((x[:, None] - boxes[..., 0]).abs() <= boxes[..., 3]) & (
+      boxes[..., 7] > 0.5)
+  top = torch.where(inside, boxes[..., 2] + boxes[..., 5],
+                    torch.zeros_like(boxes[..., 2])).amax(-1)
+  r_toe = env.model.cp_radius[0]
+  z = top + r_toe - u(-0.005, 0.01, E)
+  shift = torch.stack([x - toe[:, 0], u(-1.0, 1.0, E) - toe[:, 1],
+                       z - toe[:, 2]], -1)
+  phys = phys.replace(pos=phys.pos + shift)
+  cmd = tmpl.phys.joint_q + u(-0.3, 0.3, E, 12)
+  fb = states.dyn.lateral_friction
+  return (env.model, a1.init_robot_state(phys), cmd, states.dyn, boxes,
+          states.terrain.obstacle_spheres, fb * env.cfg.fric_coeff[0], fb,
+          env.cfg.num_action_repeat)
+
+
+def phase_stairs_window(env, states, card):
+  """compare_with_plain on `stairs_case` of `states` (two calls: same
+  bits), timed as phase 3; returns (max_abs_err, its timing numbers)."""
+  import torch
+  from vision4leg_torch.ops import physics_kernel as pk
+  args = stairs_case(env, states)
+  counts = {}
+  pk.window_plain(*args, counts=counts)
+  ok, rep = pk.compare_with_plain(args)
+  torch.cuda.synchronize()
+  log_window_report("stairs, a toe on a step edge in every env", args, rep,
+                    counts)
+  if not ok:
+    raise AssertionError("physics_window disagrees with plain on the "
+                         "stairs case")
+  if not int(counts.get("box_contacts", torch.zeros(1)).sum()) > 0:
+    raise AssertionError("the stairs case made no box contact")
+  check_repeatable("stairs", args)
+  numbers, ms = time_window("stairs", args, card, counts)
+  return rep["max_abs_err"], numbers, ms
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -1477,6 +1673,7 @@ def main() -> int:
   from vision4leg_torch.starter import ppo_nature_cnn as nature_starter
   from vision4leg_torch.starter import \
       ppo_nature_cnn_vision_only as visual_starter
+  from vision4leg_torch.starter import ppo_state as state_starter
   from vision4leg_torch.starter.common import locotransformer_kwargs
 
   # outputs below are compared against references: no TF32 anywhere
@@ -1699,7 +1896,50 @@ def main() -> int:
       visual_starter.build_module, MPC_BASELINE_HORIZON, card, dev)
   torch.cuda.empty_cache()
 
-  # --- 16. results ----------------------------------------------------------
+  # --- 16. the mountain, LocoTransformer, on the per-env engine -------------
+  mt_env, mt_meta, mt_params = build_env(MOUNTAIN_CONFIG, dev)
+  paths["mountain training"] = phase_training(
+      "mountain", mt_env, mt_meta, mt_params, starter.build_module, 1,
+      EVAL_HORIZON, card,
+      check=lambda a: check_nonflat(mt_env, a.collector_state.env_states,
+                                    "mountain"))
+  del mt_env
+  torch.cuda.empty_cache()
+
+  # --- 17. the heightfield corridor (Nature-CNN) and the state-only model ---
+  collections["thin-heightfield Nature-CNN collection"] = phase_collection(
+      "thin-heightfield Nature-CNN", HEIGHTFIELD_CONFIG,
+      nature_starter.build_module, horizon, card, dev,
+      lambda env, cs, traj: time_nonflat_step(
+          env, cs.env_states, "thin-heightfield Nature-CNN"))
+  torch.cuda.empty_cache()
+  collections["state-only collection"] = phase_collection(
+      "state-only", STATE_CONFIG, state_starter.build_module, horizon, card,
+      dev, lambda env, cs, traj: time_nonflat_step(env, cs.env_states,
+                                                   "state-only"))
+  torch.cuda.empty_cache()
+
+  # --- 18. stairs and chair_desk on the window, the stairs window case ------
+  collections["stairs collection"] = phase_collection(
+      "stairs", STAIRS_CONFIG, starter.build_module, horizon, card, dev,
+      lambda env, cs, traj: phase_stairs_window(env, cs.env_states, card))
+  stairs_err, stairs_numbers, stairs_ms = \
+      collections["stairs collection"][0]["checked"]
+  max_err = max(max_err, stairs_err)
+  torch.cuda.empty_cache()
+  collections["chair_desk collection"] = phase_collection(
+      "chair_desk", CHAIR_DESK_CONFIG, starter.build_module, horizon, card,
+      dev)
+  torch.cuda.empty_cache()
+  nonflat_split = {
+      "mountain": paths["mountain training"]["checked"],
+      "thin-heightfield": collections[
+          "thin-heightfield Nature-CNN collection"][0]["checked"],
+      "state-only": collections["state-only collection"][0]["checked"]}
+  if paths["mountain training"]["physics_window"] != 0:
+    raise AssertionError("the mountain path launched physics_window")
+
+  # --- 19. results ----------------------------------------------------------
   # launches: the sum over the paths that run a kernel, each read just
   # after it was driven with the counts at 0 (by path beside it)
   by_path = {k: {n: v[n] for n in ("physics_window", "physics_window_settle",
@@ -1708,7 +1948,8 @@ def main() -> int:
              for k, v in paths.items()}
   by_path["MPC collection"] = {"physics_window": mpc_launches,
                                "physics_window_settle": mpc_settles}
-  by_path.update({k: v for k, (v, _) in collections.items()})
+  by_path.update({k: {n: v[n] for n in v if n.startswith("physics_window")}
+                  for k, (v, _) in collections.items()})
   total = lambda name: sum(v.get(name, 0) for v in by_path.values())
   row1_paths = {k: v["physics_window"] for k, v in by_path.items()
                 if "MPC" not in k}
@@ -1725,9 +1966,11 @@ def main() -> int:
       replaces="vision4leg_tpu/ops/physics_kernel.py:122",
       launches=sum(row1_paths.values()), launches_by_path=row1_paths,
       shapes="16 substeps at 1024 envs (thin-goal, moving thin-goal and "
-             "thin-wide, interpolation and fixed-delay collection) and 8 "
-             "(eval); the MPC resets' settles of settle_steps substeps at "
-             "1024 envs, the partial resets' envs and 8 (eval)",
+             "thin-wide, interpolation and fixed-delay, stairs and "
+             "chair_desk collection) and 8 (eval); the MPC resets' settles "
+             "of settle_steps substeps at 1024 envs, the partial resets' "
+             "envs and 8 (eval); never on a heightfield terrain (mountain, "
+             "thin-heightfield, state-only: 0)",
       max_abs_err=max_err, **window), dict(
       name="transformer_layer", route="cuda",
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
@@ -1758,13 +2001,23 @@ def main() -> int:
   print(json.dumps({"kernels": kernels, "card": card,
                     "window_ms": {"rollout": window_ms,
                                   "hybrid": hybrid_ms,
-                                  "moving": moving_ms},
+                                  "moving": moving_ms,
+                                  "stairs": stairs_ms},
                     "moving_window": dict(max_abs_err=moving_err,
                                           **moving_numbers),
+                    "stairs_window": dict(max_abs_err=stairs_err,
+                                          **stairs_numbers),
+                    "nonflat_step_ms": nonflat_split,
+                    "collection_memory_gib": {
+                        k: {"peak": v["max_memory_gib"],
+                            "above_start": v["added_memory_gib"]}
+                        for k, (v, _) in collections.items()},
                     "collections_env_steps_per_s": {
                         k: rate for k, (_, rate) in collections.items()},
                     "collection_env_steps_per_s": horizon * num_envs / dt,
                     "training": {k: v["epochs"] for k, v in paths.items()},
+                    "checkpoint_mib": {k: v["checkpoint_mib"]
+                                       for k, v in paths.items()},
                     "mpc_collection_env_steps_per_s": mpc_rate,
                     "mpc_walk_min_progress_m": walk_dx,
                     "fused_update": fused_update,

@@ -4,13 +4,17 @@ Each config the port runs builds its env (on the CPU, without a reset)
 and its torch starter's actor-critic at the config's width, and the
 module takes a batch of the env's observation layout.  The starter
 follows the config's directory, as the reference's README pairs them:
-LocoTransformer for `locotransformer*`, the vision-only LocoTransformer
+LocoTransformer for `locotransformer*` (the challenge terrains'
+`challenge/locotransformer` among them), the vision-only LocoTransformer
 for `mpc_vision_only/locotransformer`, the Nature-CNN baseline for
-`naive_baseline`, `frame_extract4*` and `mpc/baseline`, and its
-vision-only form for `mpc_vision_only/baseline`.  Each thin-random-shape
-config is refused (`random_shape`, which the JAX env ignores) and each
-heightfield config (a terrain not ported); the MPC env refuses the MMDR
-options and moving obstacles, which the JAX MPC env ignores.
+`naive_baseline`, `frame_extract4*`, `mpc/baseline` and
+`challenge/baseline`, its vision-only form for `mpc_vision_only/baseline`,
+and the proprio-only `ppo_state` for `state-only-baseline`.  Each
+thin-random-shape config is refused (`random_shape`, which the JAX env
+ignores), and each MPC thin-heightfield config (the port's MPC env steps
+through the physics window, which models flat ground); the MPC env
+refuses the MMDR options and moving obstacles, which the JAX MPC env
+ignores.
 """
 import glob
 import json
@@ -23,7 +27,7 @@ from vision4leg_torch.envs.get_env import get_env
 from vision4leg_torch.starter import (ppo_locotransformer,
                                       ppo_locotransformer_vision_only,
                                       ppo_nature_cnn,
-                                      ppo_nature_cnn_vision_only)
+                                      ppo_nature_cnn_vision_only, ppo_state)
 
 ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "config")
@@ -37,33 +41,52 @@ RL_MOVING = ("frame_extract4", "frame_extract4_random_delay",
 MPC = ("mpc/baseline", "mpc_vision_only/baseline")
 
 
-def _ported_by_this_slice():
+CHALLENGE = ("chair_desk", "hill", "mountain", "stairs")
+
+
+def _ported():
+  """The 42 configs on the sparse-family terrains (flat ground, boxes)
+  and the 22 of the heightfield and challenge terrains."""
   out = [f"rl/static/{d}/{t}" for d in RL_STATIC for t in FLAT]
   out.append("rl/static/locotransformer/thin-wide")
   out += [f"rl/moving/{d}/{t}" for d in RL_MOVING for t in FLAT]
   out += [f"{d}/{t}" for d in MPC for t in FLAT]
   out += ["mpc/locotransformer/thin-wide",
           "mpc_vision_only/locotransformer/thin-wide"]
+  out += [f"rl/static/{d}/thin-heightfield"
+          for d in RL_STATIC + ("locotransformer",)]
+  out += [f"rl/moving/{d}/thin-heightfield" for d in RL_MOVING]
+  out.append("rl/static/state-only-baseline")
+  out += [f"rl/challenge/{d}/{t}" for d in ("baseline", "locotransformer")
+          for t in CHALLENGE]
+  out.append("rl/challenge/locotransformer/chair_desk_ent")
   return out
 
 
 def _refused():
-  """The configs that set random_shape or a heightfield terrain."""
-  out = []
+  """The configs that set random_shape, and the MPC configs on a
+  heightfield terrain, each with the reason it is refused."""
+  out = {}
   for path in glob.glob(os.path.join(ROOT, "**", "*.json"), recursive=True):
     with open(path) as f:
-      build = json.load(f)["env"].get("env_build", {})
-    if build.get("random_shape") or "heightfield" in build.get(
-        "terrain_type", ""):
-      out.append(os.path.relpath(path, ROOT)[:-5])
-  return sorted(out)
+      params = json.load(f)
+    build = params["env"].get("env_build", {})
+    name = os.path.relpath(path, ROOT)[:-5]
+    if build.get("random_shape"):
+      out[name] = "random_shape"
+    elif (params["env_name"] == "A1MoveGroundMPC"
+          and "heightfield" in build.get("terrain_type", "")):
+      out[name] = "non-flat terrain .* queue 1 item 2"
+  return dict(sorted(out.items()))
 
 
-PORTED = _ported_by_this_slice()
+PORTED = _ported()
 REFUSED = _refused()
 
 
 def _starter(name):
+  if name.endswith("state-only-baseline"):
+    return ppo_state
   if "vision_only" in name:
     return (ppo_locotransformer_vision_only if "locotransformer" in name
             else ppo_nature_cnn_vision_only)
@@ -75,12 +98,23 @@ def _params(name):
     return json.load(f)
 
 
-def test_the_slice_counts_42_configs():
-  assert len(PORTED) == len(set(PORTED)) == 42
+def test_the_port_runs_64_configs_and_refuses_20():
+  assert len(PORTED) == len(set(PORTED)) == 64
   for name in PORTED:
     assert os.path.exists(os.path.join(ROOT, name + ".json")), name
-  # 16 thin-random-shape, 16 thin-heightfield, state-only-baseline
-  assert len(REFUSED) == 33
+  # every config of the repo but the refused ones and the experiments'
+  every = {os.path.relpath(p, ROOT)[:-5] for p in glob.glob(
+      os.path.join(ROOT, "**", "*.json"), recursive=True)}
+  assert every - set(PORTED) - set(REFUSED) == {
+      "experiments/locotransformer/thin-goal-cvf",
+      "mpc/locotransformer/thin-goal", "mpc/locotransformer/thin",
+      "mpc_vision_only/locotransformer/thin-goal",
+      "mpc_vision_only/locotransformer/thin",
+      "rl/static/locotransformer/thin-goal",
+      "rl/static/locotransformer/thin"}
+  # 16 thin-random-shape, 4 MPC thin-heightfield
+  reasons = list(REFUSED.values())
+  assert len(REFUSED) == 20 and reasons.count("random_shape") == 16
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -99,9 +133,7 @@ def test_config_builds_env_and_module(name):
 @pytest.mark.parametrize("name", REFUSED)
 def test_config_is_refused(name):
   params = _params(name)
-  reason = ("random_shape" if _params(name)["env"]["env_build"].get(
-      "random_shape") else "terrain .* is not ported")
-  with pytest.raises(NotImplementedError, match=reason):
+  with pytest.raises(NotImplementedError, match=REFUSED[name]):
     get_env(params["env_name"], params["env"], device="cpu")
 
 

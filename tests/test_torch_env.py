@@ -180,9 +180,10 @@ def test_render_depth_matches_jax():
 def test_env_rejects_what_it_does_not_run():
   with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
     tenv_mod.A1GymEnv(tenv_mod.EnvConfig(rgbd=True), device="cpu")
-  with pytest.raises(NotImplementedError, match="queue 1 items 2-4"):
-    tenv_mod.A1GymEnv(tenv_mod.EnvConfig(terrain_type="random_hill"),
-                      device="cpu")
+  with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    tenv_mod.A1GymEnv(
+        tenv_mod.EnvConfig(terrain_type="random_sphere_with_subgoal"),
+        device="cpu")
   with pytest.raises(NotImplementedError, match="queue 1 items 3-4"):
     tenv_mod.A1GymEnv(tenv_mod.EnvConfig(enable_action_filter=True),
                       device="cpu")

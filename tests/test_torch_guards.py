@@ -30,6 +30,7 @@ for n in ("vision4leg_torch.algo.agent",
           "vision4leg_torch.starter.ppo_locotransformer_vision_only",
           "vision4leg_torch.starter.ppo_nature_cnn",
           "vision4leg_torch.starter.ppo_nature_cnn_vision_only",
+          "vision4leg_torch.starter.ppo_state",
           "vision4leg_torch.ops.attention",
           "vision4leg_torch.envs.mpc_env",
           "vision4leg_torch.mpc.convex_mpc",

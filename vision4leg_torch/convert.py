@@ -48,8 +48,13 @@ def dynamics(dyn, device="cpu") -> a1.DynamicsParams:
 
 
 def terrain(ts, device="cpu") -> TerrainState:
+  """A batch of the JAX package's TerrainState (leading env axis), its
+  heightfield fields included."""
   spheres = getattr(ts, "obstacle_spheres", None)
   return TerrainState(
+      height=tensor(ts.height, device), hf_cell=tensor(ts.hf_cell, device),
+      hf_origin=tensor(ts.hf_origin, device),
+      hf_zoff=tensor(ts.hf_zoff, device),
       boxes=tensor(ts.boxes, device), box_dirs=tensor(ts.box_dirs, device),
       subgoals=tensor(ts.subgoals, device),
       goal_pos=tensor(ts.goal_pos, device),
@@ -139,9 +144,14 @@ def params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
   the encoder has no proprio MLP (layer counts read from the params; the
   torch LayerNorms use eps 1e-6 like flax's); NatureFuseActorCritic when
   the encoder has a Nature CNN and no transformer layers follow it;
-  VisualNetActorCritic when a `backbone` takes the encoder's place."""
+  VisualNetActorCritic when a `backbone` takes the encoder's place;
+  StateActorCritic when an MLP `base` does."""
   p = np_params.get("params", np_params)
   sd: Dict[str, torch.Tensor] = {}
+  if "base" in p:
+    _mlp(sd, "base.layers", p["base"])
+    _nature_heads_from_flax(sd, p)
+    return sd
   if "backbone" in p:
     _nature_from_flax(sd, "backbone", p["backbone"])
     _nature_heads_from_flax(sd, p)

@@ -1,19 +1,22 @@
 """Depth camera by analytic raycasting (torch mirror of
-vision4leg_tpu.envs.camera, flat-ground path).
+vision4leg_tpu.envs.camera).
 
 Replaces PyBullet's 64x64 depth render of the reference
 (locomotion_gym_env_with_rich_information.py:569-632): eye at the trunk
 plus 0.2309 m along its x-axis, view direction (x - z)/2, projection
 P00=1.0825318, P11=1.7320509.  Rays have unit forward component, so the
 hit parameter t is the view-axis depth the reference linearizes its
-z-buffer to.  Every function is batched over a leading env axis; these
-are plain torch ops (the JAX package has no Pallas kernel here).
+z-buffer to.  The ground is the plane z=0 on the flat terrains and each
+env's heightfield, marched along every ray, on the others.  Every
+function is batched over a leading env axis; these are plain torch ops
+(the JAX package has no Pallas kernel here).
 """
 from __future__ import annotations
 
 import torch
 
-from vision4leg_torch.envs.terrain import SUBGOAL_RADIUS, TerrainState
+from vision4leg_torch.envs.terrain import (SUBGOAL_RADIUS, TerrainState,
+                                           heightfield_fns)
 
 IMG_SIZE = 64
 P00 = 1.0825318098068237
@@ -130,14 +133,56 @@ def _ray_spheres_t(eye, dirs, centers, radius: float, active):
                     dim=-1)
 
 
+def _ray_heightfield_t(eye, dirs, height_fn, n_steps: int = 56,
+                       chunk: int = 2, far_t: float = 10.5):
+  """t of the first crossing below the ground height_fn (inf if none
+  within far_t): a march of n_steps fixed steps over [0.05, far_t], `chunk`
+  steps at a time (carrying the first crossing's bracket), then 8
+  bisections of that bracket (JAX `_ray_heightfield_t`, camera.py
+  :151-198).  eye (E, 3), dirs (E, N, 3); the largest live tensor is
+  (E, N, chunk), not (E, N, n_steps)."""
+  dev = eye.device
+  E, N = dirs.shape[:2]
+  ts = torch.linspace(0.05, far_t, n_steps, device=dev)
+  prev = torch.cat([torch.zeros(1, device=dev), ts[:-1]])
+  found = torch.zeros(E, N, dtype=torch.bool, device=dev)
+  t_lo = torch.zeros(E, N, device=dev)
+  t_hi = torch.zeros(E, N, device=dev)
+  for i in range(0, n_steps // chunk * chunk, chunk):
+    ts_k, prev_k = ts[i:i + chunk], prev[i:i + chunk]
+    pts = eye[:, None, None, :] + ts_k[:, None] * dirs[:, :, None, :]
+    below = pts[..., 2] <= height_fn(pts[..., :2])       # (E, N, chunk)
+    hit = torch.any(below, dim=-1)
+    first = torch.argmax(below.to(torch.uint8), dim=-1)  # first crossing
+    new = hit & ~found
+    t_lo = torch.where(new, prev_k[first], t_lo)
+    t_hi = torch.where(new, ts_k[first], t_hi)
+    found = found | hit
+  for _ in range(8):
+    mid = 0.5 * (t_lo + t_hi)
+    p = eye[:, None, :] + mid[..., None] * dirs
+    under = p[..., 2] <= height_fn(p[..., :2])
+    t_lo, t_hi = torch.where(under, t_lo, mid), torch.where(under, mid, t_hi)
+  return torch.where(found, 0.5 * (t_lo + t_hi),
+                     torch.full_like(t_lo, float("inf")))
+
+
 def render_depth(trunk_pos, trunk_rot, terrain: TerrainState,
-                 show_subgoals: bool, max_boxes: int | None = None):
-  """(E, 64, 64) linearized depth on flat ground (background 1000)."""
+                 show_subgoals: bool, max_boxes: int | None = None,
+                 flat: bool = True, far_t: float = 10.5):
+  """(E, 64, 64) linearized depth (background 1000): the ground is the
+  plane z=0 with `flat`, else the terrain's heightfields marched to far_t
+  (10.5 m is exact after preprocess_depth's 10 m clip; the env passes 20
+  without it, JAX env.py:405-408)."""
   if max_boxes is None:
     max_boxes = MAX_RENDER_BOXES
   eye, dirs = camera_rays(trunk_pos, trunk_rot)
   f_axis, r_axis, u_axis = view_frame(trunk_rot)
-  t = _ray_plane_t(eye, dirs)
+  if flat:
+    t = _ray_plane_t(eye, dirs)
+  else:
+    t = _ray_heightfield_t(eye, dirs, heightfield_fns(terrain)[0],
+                           far_t=far_t)
   boxes = terrain.boxes
   if boxes.shape[-2] > 0:
     if boxes.shape[-2] > max_boxes:

@@ -1,12 +1,17 @@
 """A1MoveGround as batched torch reset/step (mirror of
-vision4leg_tpu.envs.env on the physics kernel's path).
+vision4leg_tpu.envs.env).
 
 The reference's `LocomotionGymEnv` (locomotion_gym_env_with_rich_
 information.py) with the wrappers `build_a1_ground_env` stacks
 (ActionRestrain clip, DiagonalAction, env_builder.py:40-107).  Every
 EnvState field carries a leading env axis; `reset` builds a batch of envs
-and `step_batch` steps them all through one physics-window launch
-(`ops.physics_kernel.robot_window`).
+and `step_batch` steps them all: on the flat terrains
+(`terrain.FLAT_TERRAINS`) through one physics-window launch
+(`ops.physics_kernel.robot_window`, flat ground and boxes), on the others
+through the per-env engine batched over the envs (`a1.robot_step`) with
+each env's heightfield in the contact model and the camera, as the JAX
+env's vmapped `step` does (env.py:482-500, 594-595).  A non-flat env
+never reaches the window: `_robot_window` raises there.
 
 Observation layout (sorted sensor names, env_utils.py:27-50):
   [GoalPos(6)?] [HSW(BaseDisplacement)(9)?] [HSW(IMU)(12)]
@@ -222,14 +227,15 @@ class A1GymEnv:
           "rejects it (ROADMAP queue 3)")
     if cfg.terrain_type not in terr.TERRAIN_GENERATORS:
       raise NotImplementedError(
-          f"terrain {cfg.terrain_type!r} is not ported yet; non-flat and "
-          "other terrains are ROADMAP queue 1 items 2-4")
+          f"terrain {cfg.terrain_type!r} is not ported yet (ROADMAP queue "
+          "1 item 4)")
     unported = [k for k in _UNPORTED if getattr(cfg, k)]
     if unported:
       raise NotImplementedError(
           f"env options {unported} are not ported yet (ROADMAP queue 1 "
           "items 3-4)")
     self.cfg = cfg
+    self._flat = cfg.terrain_type in terr.FLAT_TERRAINS
     self.device = resolve_device(device)
     self.model = a1_model.build(dt=cfg.time_step_s / cfg.substeps,
                                 device=self.device)
@@ -249,6 +255,12 @@ class A1GymEnv:
   @property
   def obs_dim(self) -> int:
     return self.cfg.obs_dim
+
+  @property
+  def kernel_capable(self) -> bool:
+    """Whether the physics window models this env's ground: flat z=0 with
+    boxes and spheres (JAX `kernel_capable`, env.py:574-578)."""
+    return self._flat
 
   @property
   def _random_delay(self) -> bool:
@@ -356,7 +368,13 @@ class A1GymEnv:
     template = self.settled_template()
     E = n_env
     pos_xy = self._init_pos[:2] + draws.init_jitter
-    pos = torch.cat([pos_xy, template.phys.pos[2].expand(E, 1)], dim=-1)
+    z = template.phys.pos[2].expand(E)
+    if not self._flat:
+      # the template's height above each env's own ground (JAX env.py
+      # :306-309)
+      h_fn, _ = terr.heightfield_fns(draws.terrain)
+      z = z + h_fn(pos_xy[:, None])[:, 0]
+    pos = torch.cat([pos_xy, z[:, None]], dim=-1)
     tp = template.phys
     rep = lambda x: x.expand((E,) + x.shape).clone()
     phys = engine.PhysState(pos=pos, quat=rep(tp.quat),
@@ -410,7 +428,8 @@ class A1GymEnv:
         state.robot.phys.pos, rot, state.terrain,
         show_subgoals=cfg.subgoal_reward is not None,
         max_boxes=terr.RENDER_BOX_CAPS.get(cfg.terrain_type,
-                                           cam.MAX_RENDER_BOXES))
+                                           cam.MAX_RENDER_BOXES),
+        flat=self._flat, far_t=10.5 if cfg.depth_image else 20.0)
     if cfg.depth_image:
       depth = cam.preprocess_depth(depth, blind.num, blind.idx)
     return depth
@@ -481,7 +500,9 @@ class A1GymEnv:
     return state, act12
 
   def _pruned_boxes(self, boxes, base_xy):
-    """The NEAR_BOXES boxes nearest by axis-aligned surface distance."""
+    """The NEAR_BOXES boxes nearest by axis-aligned surface distance, ties
+    to the lower index, as jax.lax.top_k breaks them (a stable sort: on
+    multi_stairs more than NEAR_BOXES slabs can contain the base xy)."""
     if boxes.shape[1] <= self.NEAR_BOXES:
       return boxes
     dx = torch.clamp(torch.abs(base_xy[:, None, 0] - boxes[..., 0])
@@ -489,27 +510,70 @@ class A1GymEnv:
     dy = torch.clamp(torch.abs(base_xy[:, None, 1] - boxes[..., 1])
                      - boxes[..., 4], min=0.0)
     d = dx * dx + dy * dy + torch.where(boxes[..., 7] > 0.5, 0.0, 1e9)
-    _, idx = torch.topk(-d, self.NEAR_BOXES, dim=-1)
+    idx = torch.sort(d, dim=-1, stable=True).indices[:, :self.NEAR_BOXES]
     return torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 8))
 
+  def _robot_window(self, *args, **kw):
+    """physics_kernel.robot_window, which models flat ground only: a
+    non-flat env raises here rather than step on a plane."""
+    if not self.kernel_capable:
+      raise RuntimeError(
+          f"physics_kernel.robot_window models flat ground; terrain "
+          f"{self.cfg.terrain_type!r} has a heightfield and steps through "
+          "the per-env engine")
+    return physics_kernel.robot_window(*args, **kw)
+
+  def _contact_fn(self, terrain: terr.TerrainState, dyn: a1.DynamicsParams,
+                  base_xy):
+    """The per-env engine's contact model (JAX `_contact_fn`, env.py
+    :232-242): the terrain's ground, the NEAR_BOXES boxes nearest to
+    base_xy (E, 2), the obstacle spheres; ground friction
+    lateral_friction * fric_coeff[0], obstacle friction lateral_friction."""
+    h_fn, n_fn = terr.height_fns(terrain, self._flat)
+    return contact.make_terrain_contact_fn(
+        h_fn, n_fn, boxes=self._pruned_boxes(terrain.boxes, base_xy),
+        spheres=terrain.obstacle_spheres,
+        friction=dyn.lateral_friction * self.cfg.fric_coeff[0],
+        box_friction=dyn.lateral_friction)
+
   def step_batch(self, states: EnvState, actions, gen: torch.Generator):
-    """Step every env: action expansion, one physics-window launch over
-    all envs, sensors, task, camera.  Returns (states, obs (E, D),
-    reward (E,), done (E,) bool, info)."""
+    """Step every env: action expansion, the physics (one window launch
+    over all envs on flat ground, else the per-env engine), sensors,
+    task, camera.  Returns (states, obs (E, D), reward (E,), done (E,)
+    bool, info)."""
     cfg = self.cfg
     draws = self.draw_step(actions.shape[0], states.terrain.boxes.shape[1],
                            gen)
     states, act12 = self._step_pre(states, actions, draws)
+    if not self.kernel_capable:
+      rs, pen = self._engine_window(states, act12)
+      return self._step_post(states, rs, act12, pen, draws)
     pos_xy = states.robot.phys.pos[:, :2]
     boxes = self._pruned_boxes(states.terrain.boxes, pos_xy)
     spheres = states.terrain.obstacle_spheres
     fric_box = states.dyn.lateral_friction
     fric_ground = fric_box * cfg.fric_coeff[0]
-    rs, pen = physics_kernel.robot_window(
+    rs, pen = self._robot_window(
         self.model, states.robot, act12, states.dyn, boxes, spheres,
         fric_ground, fric_box, cfg.num_action_repeat * cfg.substeps,
         cfg.enable_action_interpolation)
     return self._step_post(states, rs, act12, pen, draws)
+
+  def _engine_window(self, states: EnvState, act12):
+    """The window of a non-flat step (JAX `step`, env.py:482-500):
+    action_repeat substeps of the per-env engine over every env at once,
+    boxes pruned by the base xy before the step, then the contact read of
+    the post-window world.  Returns (robot state, penetration (E, P, 2))."""
+    cfg = self.cfg
+    cfn = self._contact_fn(states.terrain, states.dyn,
+                           states.robot.phys.pos[:, :2])
+    rs, _ = a1.robot_step(self.model, states.robot, act12, states.dyn, cfn,
+                          cfg.num_action_repeat * cfg.substeps,
+                          cfg.enable_action_interpolation)
+    kin = engine.fwd_kinematics(self.model, rs.phys)
+    cpos, cvel, _ = engine.contact_points_world(self.model, rs.phys, kin)
+    _, pen = cfn(cpos, cvel, self.model.cp_radius)
+    return rs, pen
 
   def _step_post(self, state: EnvState, rs, act12, pen, draws: StepDraws):
     cfg = self.cfg

@@ -16,7 +16,8 @@ Reference: vision4leg/envs/locomotion_gym_mpc_env_with_rich_information.py
 physics-window kernel over all envs in its hybrid mode (stance legs apply
 the MPC feedforward torque, swing legs track the Raibert targets under
 PD); the controller stack between windows is batched torch ops.  The
-camera, the box pruning and the task plumbing are A1GymEnv's.
+camera, the box pruning and the task plumbing are A1GymEnv's.  Non-flat
+terrains are refused (the window models flat ground).
 
 Reset settles every env for settle_steps * substeps substeps from the
 standing pose at its own start position, as the reference does, through
@@ -101,6 +102,13 @@ class A1MPCGymEnv(A1GymEnv):
           "ignores them; the port rejects them (no shipped config sets "
           "them)")
     self._setup(cfg, device)
+    if not self.kernel_capable:
+      raise NotImplementedError(
+          f"A1MoveGroundMPC on the non-flat terrain {cfg.terrain_type!r}: "
+          "the port's MPC env steps through the physics window, which "
+          "models flat ground; the JAX MPC env's vmapped per-env step "
+          "(vision4leg_tpu/envs/mpc_env.py:328-329) is ROADMAP queue 1 "
+          "item 2")
     clip = np.asarray(cfg.clip_num if cfg.clip_num is not None
                       else (0.3, 0.4), np.float32)
     self._act_low = torch.tensor(-clip, device=self.device)
@@ -145,7 +153,7 @@ class A1MPCGymEnv(A1GymEnv):
                                                        joint_q=cmd.clone())
     boxes = self._pruned_boxes(terrain.boxes, pos[:, :2])
     fb = dyn.lateral_friction
-    rs, _ = physics_kernel.robot_window(
+    rs, _ = self._robot_window(
         self.model, a1.init_robot_state(phys), cmd, dyn, boxes,
         terrain.obstacle_spheres, fb * self.cfg.fric_coeff[0], fb,
         self.cfg.settle_steps * self.cfg.substeps)
@@ -290,7 +298,7 @@ class A1MPCGymEnv(A1GymEnv):
     for _ in range(cfg.policy_freq):
       cs, swing_q, stance_tau, stance_mask = self.controller_tick(
           cs, rs, pen, t, lin, ang)
-      rs, pen = physics_kernel.robot_window(
+      rs, pen = self._robot_window(
           self.model, rs, swing_q, dyn, boxes, spheres, fric_ground,
           fric_box, n_sub, False, stance_tau, stance_mask)
       t = t + cfg.num_action_repeat * cfg.time_step_s

@@ -1,5 +1,6 @@
 """Actor-critics (torch mirror of vision4leg_tpu.models.actor_critic):
-the LocoTransformer ones (LocoTransformerActorCritic,
+the proprio-only one (StateActorCritic; reference ppo_state.py:93-104: a
+shared MLP base, separate MLP heads), the LocoTransformer ones (LocoTransformerActorCritic,
 VisionOnlyTransformerActorCritic; reference ppo_locotransformer.py:79-101
 and ppo_locotransformer_vision_only.py: one shared tokenizer, separate
 transformer stacks and MLP heads for policy and value) and the Nature-CNN
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from vision4leg_torch.models import init as winit
-from vision4leg_torch.models.base import (LocoTransformerEncoder,
+from vision4leg_torch.models.base import (LocoTransformerEncoder, MLPBase,
                                           NatureEncoder, NatureFuseEncoder,
                                           TransformerEncoderLayer,
                                           VisionTokenEncoder, nature_out_dim)
@@ -52,6 +53,69 @@ class MLPHead(nn.Module):
     for layer in self.layers[:-1]:
       x = torch.relu(layer(x))
     return self.layers[-1](x)
+
+
+class GaussianHead(nn.Module):
+  """The state-independent logstd of the Nature-CNN policies, a module of
+  its own as the JAX package's `head` (so `param_labels` gives it to the
+  policy's optimizer under the same name)."""
+
+  def __init__(self, action_dim: int, log_init: float = 0.125):
+    super().__init__()
+    self.logstd = nn.Parameter(torch.full((action_dim,), math.log(log_init)))
+
+  def forward(self, mean):
+    return gaussian_head(self.logstd, mean)
+
+
+def _no_fused(model, fused: bool):
+  if fused:
+    raise NotImplementedError(
+        f"fused: {type(model).__name__} has no transformer layer to fuse")
+
+
+class StateActorCritic(nn.Module):
+  """ppo_state: one MLPBase shared by the policy and the value (`vf.base
+  = pf.base`, starter/ppo_state.py:93-104) under separate append-MLP
+  heads; `pi_v` runs the base once.  The JAX module's `pi`, `v` and
+  `pi_v` take no fused switch; here `fused` is accepted for the agent's
+  sake and refused when set."""
+
+  def __init__(self, action_dim: int, state_input_shape: int,
+               hidden_shapes: Sequence[int] = (256, 256),
+               append_hidden_shapes: Sequence[int] = (256, 256),
+               log_init: float = 0.125,
+               generator: torch.Generator | None = None):
+    super().__init__()
+    self.base = MLPBase(state_input_shape, hidden_shapes)
+    self.head = GaussianHead(action_dim, log_init)
+    self.pf_mlp = MLPHead(self.base.out_dim, append_hidden_shapes,
+                          action_dim)
+    self.vf_mlp = MLPHead(self.base.out_dim, append_hidden_shapes, 1)
+    if generator is not None:
+      self.init_weights(generator)
+
+  def init_weights(self, gen: torch.Generator):
+    """The reference's initializers, drawn from `gen`."""
+    self.base.init_weights(gen)
+    self.pf_mlp.init_weights(gen)
+    self.vf_mlp.init_weights(gen)
+
+  def pi(self, x, fused: bool = False):
+    """-> (mean, std, logstd)."""
+    _no_fused(self, fused)
+    return self.head(self.pf_mlp(self.base(x)))
+
+  def v(self, x, fused: bool = False):
+    """-> (B, 1) value."""
+    _no_fused(self, fused)
+    return self.vf_mlp(self.base(x))
+
+  def pi_v(self, x, fused: bool = False):
+    """The base once, both heads: ((mean, std, logstd), value)."""
+    _no_fused(self, fused)
+    h = self.base(x)
+    return self.head(self.pf_mlp(h)), self.vf_mlp(h)
 
 
 class LocoTransformerActorCritic(nn.Module):
@@ -211,19 +275,6 @@ class VisionOnlyTransformerActorCritic(nn.Module):
     return (gaussian_head(self.logstd, self._stack(t, self.pf_layers,
                                                    self.pf_mlp, fused)),
             self._stack(t, self.vf_layers, self.vf_mlp, fused))
-
-
-class GaussianHead(nn.Module):
-  """The state-independent logstd of the Nature-CNN policies, a module of
-  its own as the JAX package's `head` (so `param_labels` gives it to the
-  policy's optimizer under the same name)."""
-
-  def __init__(self, action_dim: int, log_init: float = 0.125):
-    super().__init__()
-    self.logstd = nn.Parameter(torch.full((action_dim,), math.log(log_init)))
-
-  def forward(self, mean):
-    return gaussian_head(self.logstd, mean)
 
 
 class NatureFuseActorCritic(nn.Module):

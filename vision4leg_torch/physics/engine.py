@@ -5,9 +5,11 @@ Generalized velocity v = [omega_world(3), v_base_world(3), qd(J)]; mass
 matrix from world-frame COM Jacobians (M = sum J^T I J); bias forces by
 point-form Newton-Euler at qddot = 0; penalty contacts supplied by a
 contact function; semi-implicit Euler.  Every function takes leading
-batch dimensions on the state.  The batched physics window of the env
-runs `ops/physics_envlast.py` instead; this per-env engine serves the
-reset's one-time settle and the parity tests.
+batch dimensions on the state, and on the model's inertial/joint arrays
+(`a1.apply_dynamics` of a batch).  On flat ground the env steps through
+the physics window (`ops/physics_envlast.py`, its plain version); this
+per-env engine serves the reset's one-time settle, the non-flat
+terrains' steps and the parity tests.
 """
 from __future__ import annotations
 
@@ -147,7 +149,7 @@ def mass_matrix(model: Model, kin: Kin) -> torch.Tensor:
   """(..., nv, nv) joint-space inertia via CRB in world coordinates."""
   Jw, Jv = _body_jacobians(model, kin)
   Iw = _world_inertia(model, kin)
-  mJv = model.mass[:, None, None] * Jv
+  mJv = model.mass[..., :, None, None] * Jv
   IwJw = _mm(Iw, Jw)
   flat = lambda A: A.reshape(A.shape[:-3] + (-1, A.shape[-1]))
   return (torch.einsum("...kv,...kw->...vw", flat(mJv), flat(Jv))
@@ -201,7 +203,7 @@ def bias_forces(model: Model, state: PhysState, kin: Kin) -> torch.Tensor:
   Jw, Jv = _body_jacobians(model, kin)
   omega, _, alpha, a_com = body_velocities(model, state, kin)
   Iw = _world_inertia(model, kin)
-  F = model.mass[:, None] * (a_com - model.gravity)
+  F = model.mass[..., :, None] * (a_com - model.gravity)
   T = _mv(Iw, alpha) + torch.linalg.cross(omega, _mv(Iw, omega))
   return (torch.sum(Jv * F[..., None], dim=(-3, -2))
           + torch.sum(Jw * T[..., None], dim=(-3, -2)))
@@ -271,8 +273,12 @@ def fwd_dynamics(model: Model, state: PhysState, tau_joints,
   if solver == "cg":
     vdot = solve_spd_cg(Mr, rhs)
   else:
-    L = torch.linalg.cholesky(Mr)
+    # cholesky_ex: no device sync, and a failed factorization gives NaN
+    # as jnp.linalg.cholesky does (a diverged env ends its episode there)
+    L, info = torch.linalg.cholesky_ex(Mr)
     vdot = torch.cholesky_solve(rhs[..., None], L)[..., 0]
+    vdot = torch.where((info == 0)[..., None], vdot,
+                       torch.full_like(vdot, float("nan")))
   return vdot, kin, penetration, f_c
 
 

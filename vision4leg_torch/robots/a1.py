@@ -54,13 +54,14 @@ def default_dynamics(model: Model, batch: tuple = ()) -> DynamicsParams:
 
 
 def apply_dynamics(model: Model, dyn: DynamicsParams) -> Model:
-  """Per-episode model with one env's randomized inertial/joint params
-  (dyn without env dims)."""
+  """Per-episode model with the randomized inertial/joint params of dyn;
+  with env dims on dyn, every inertial/joint array of the model gains
+  them (mass (E, B), inertia (E, B, 3, 3), damping and friction (E, J))."""
   return model.replace(
       mass=model.mass * dyn.mass_scale,
-      inertia=model.inertia * dyn.inertia_scale[:, None, None],
-      joint_damping=model.joint_damping + dyn.motor_friction,
-      joint_friction=model.joint_friction + dyn.joint_friction)
+      inertia=model.inertia * dyn.inertia_scale[..., None, None],
+      joint_damping=model.joint_damping + dyn.motor_friction[..., None],
+      joint_friction=model.joint_friction + dyn.joint_friction[..., None])
 
 
 @dataclasses.dataclass
@@ -110,6 +111,26 @@ def substep(model: Model, rs: RobotState, command, dyn: DynamicsParams,
                    dim=-2)
   return rs.replace(phys=phys, obs_hist=hist, observed_torques=tau,
                     step_counter=rs.step_counter + 1), penetration
+
+
+def robot_step(model: Model, rs: RobotState, action, dyn: DynamicsParams,
+               contact_fn, action_repeat: int, interpolate: bool = False):
+  """`Minitaur.Step` (minitaur.py:276-286; JAX `robot_step`, a1.py
+  :129-154): action_repeat substeps of the per-env engine, the command
+  ramped linearly from last_robot_action to `action` over the window with
+  `interpolate`.  Leading env dims on rs, action (..., 12) and dyn.
+  Returns (state with last_robot_action = action, contact flags
+  (..., P, 2): any penetration over the window)."""
+  model_d = apply_dynamics(model, dyn)
+  prev = rs.last_robot_action
+  contact_any = None
+  for i in range(action_repeat):
+    cmd = (prev + (i + 1.0) / action_repeat * (action - prev)
+           if interpolate else action)
+    rs, pen = substep(model_d, rs, cmd, dyn, contact_fn)
+    hit = pen > 0.0
+    contact_any = hit if contact_any is None else contact_any | hit
+  return rs.replace(last_robot_action=action), contact_any
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ Usage (the reference's CLI):
       --config config/rl/static/naive_baseline/thin-goal.json \
       --num_envs 1024 --seed 0 --log_dir ./log --id nature_naive
   (or the MMDR configs config/rl/static/frame_extract4*/ and
-  config/rl/moving/{naive_baseline,frame_extract4*}/ on thin-goal, thin
-  and thin-wide, or config/mpc/baseline/)
+  config/rl/moving/{naive_baseline,frame_extract4*}/ on thin-goal, thin,
+  thin-wide and thin-heightfield, config/mpc/baseline/, or
+  config/rl/challenge/baseline/)
 """
 from vision4leg_torch.models.actor_critic import NatureFuseActorCritic
 from vision4leg_torch.starter.common import nature_kwargs, run_experiment
