@@ -151,16 +151,46 @@ Phases, each printed with the seconds since start:
      launches each); the window against its plain version by
      `compare_with_plain` on `stairs_case` (a toe of every env on a step's
      edge); two calls give the same bits; timed as in phase 3;
- 19. one JSON line with every kernel's numbers (launches summed over the
+ 19. MPC on the heightfield: config/mpc/locotransformer/
+     thin-heightfield.json, the LocoTransformer at full width, 1024 envs,
+     fused layer on, through a PPOAgent: the reset, a 2-step rollout and
+     an eval of 2 steps x 8 envs on the per-env engine; the window never
+     launched (rows 1 and 1h), the layer's launches exact, every output
+     finite; each step's host-clock split (engine ticks, controller,
+     camera, the resets after it, rest: `StepSplit`);
+ 20. thin-random-shape (`phase_random_shape`): config/rl/static/
+     locotransformer/thin-random-shape.json draws the boxes of thin.json
+     from the same seed (random_shape is ignored, as in the JAX env); a
+     16-step collection of it at 1024 envs (16 window launches) and one
+     step of config/mpc/baseline/thin-random-shape.json (20 hybrid
+     launches, the settles counted apart);
+ 21. sim2sim (`phase_sim2sim`, `phase_training` as in phase 6): the
+     Nature-CNN of vision4leg_torch/starter/ppo_nature_cnn_sim2sim.py on
+     config/rl/static/frame_extract4_random_delay/thin-goal.json, one
+     epoch at 1024 envs, its eval of 32 (of the transform's 2000) steps x
+     8 on the transfer env (`sim2sim_eval_params`); the window's launches
+     exact; the eval env's options as the transform sets them, and its
+     eval reads the training collector's normalizer, the same object;
+ 22. bf16 collection and the action filter: a float32 and a bf16 16-step
+     thin-goal rollout at 1024 envs, fused layer asked for in both, timed
+     in turn; the layer launched 4 x 16 + 2 times in float32 and 0 times
+     under bf16 (its forward runs the unfused layer, as the JAX layer
+     routes a non-float32 input); the bf16 pi_v within BF16_BAND of the
+     float32 one on the same observations (`phase_bf16`); then a 16-step
+     thin-goal collection with enable_action_filter on (16 window
+     launches) and the filtered commands' range;
+ 23. one JSON line with every kernel's numbers (launches summed over the
      paths, with each path's count and the shapes run), then the last
      line {"ok": true, "device": {...}}.
 
 Cuts of depth: training runs two epochs (thin-goal, MPC) or one
-(vision-only, MMDR, Nature-CNN, mountain) of the configs' 1500; the
-non-MPC evals 32 of 999 steps and the MPC evals 4 (an MPC step is
-host-bound at ~0.25-0.5 s); MPC collection one 8-step rollout, the
-vision-only baseline's 4 steps; the MPC walk 20 steps at 64 envs.
-Widths are the configs' own.
+(vision-only, MMDR, Nature-CNN, mountain, sim2sim) of the configs' 1500;
+the non-MPC evals 32 of 999 steps (sim2sim: of 2000) and the MPC evals 4
+(an MPC step is host-bound at ~0.25-0.5 s); MPC collection one 8-step
+rollout, the vision-only baseline's 4 steps, the random-shape MPC
+baseline's 1; the MPC heightfield 2 collection steps and 2 eval steps
+(each step runs 100 substeps of the per-env engine, each reset 400); the
+MPC walk 20 steps at 64 envs.  Widths are the configs' own.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
 below), since outputs are compared; phase 7 turns cuDNN's TF32 on for
@@ -205,13 +235,14 @@ def actor_critic(env, params, generator=None):
                                     generator=generator)
 
 
-def build_env(config, dev):
-  """(env, meta, params) of a JSON config of this checkout, unchanged,
-  on `dev`."""
+def build_env(config, dev, overrides=None):
+  """(env, meta, params) of a JSON config of this checkout on `dev`,
+  unchanged but for the env_build entries in `overrides`."""
   from vision4leg_torch.envs.get_env import get_env
   root = os.path.dirname(os.path.abspath(__file__))
   with open(os.path.join(root, config)) as f:
     params = json.load(f)
+  params["env"]["env_build"].update(overrides or {})
   env, meta = get_env(params["env_name"], params["env"], device=dev)
   return env, meta, params
 
@@ -815,14 +846,15 @@ def time_layer_shape(x, w, lib, gen, card):
 
 
 def phase_training(label, env, meta, params, build_module, epochs,
-                   eval_horizon, card, fused=True, check=None):
+                   eval_horizon, card, fused=True, check=None, eval_env=None):
   """`epochs` PPO epochs of `params`' config through the port's starter
   pieces (`build_module` of a starter), fused layer on in collection and
   update (off with fused=False: the Nature-CNN models have no layer), an
   eval of eval_horizon steps after each; the launch counts set to 0 just
   before and read just after, held to the path's exact counts; metrics
   finite, parameters changed, the checkpoint restored into a second agent
-  equal to the first.  On the MPC env the window runs policy_freq hybrid
+  equal to the first.  `eval_env` evaluates on another env (sim2sim).  On
+  the MPC env the window runs policy_freq hybrid
   launches a step, and each reset (the rollout's partial resets, the
   eval's) one settle launch, counted apart.  `check(agent)` runs after
   the counts are read.  Returns the launch counts, each epoch's numbers
@@ -849,7 +881,8 @@ def phase_training(label, env, meta, params, build_module, epochs,
         save_interval=epochs, num_eval_envs=n_eval,
         obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"],
         reward_scale=meta["reward_scale"], fused_attention=fused,
-        fused_update=fused, eval_horizon=eval_horizon, device=env.device)
+        fused_update=fused, eval_env=eval_env, eval_horizon=eval_horizon,
+        device=env.device)
 
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
     logger = Logger("chip_smoke", params["env_name"], 0, params, tmp)
@@ -1372,20 +1405,21 @@ def phase_moving_window(env, states, card):
 
 
 def phase_collection(label, config, build_module, horizon, card, dev,
-                     check=None):
+                     check=None, overrides=None):
   """One `horizon`-step rollout at NUM_ENVS envs of `config` with the
   starter module `build_module` (seeded random weights, no fused layer:
   the collector calls pi_v, or pi then v), launch counts set to 0 just
   before and held after: the window once a step (policy_freq hybrid
   launches on the MPC env, whose partial resets' settles are counted
-  apart), the layer never.  `check(env, cs, traj)` runs after.  Returns
-  the launch counts and the rate."""
+  apart), the layer never.  `check(env, cs, traj)` runs after;
+  `overrides` changes env_build entries of the config.  Returns the
+  launch counts and the rate."""
   import torch
   from vision4leg_torch.collector import rollout as rollout_lib
   from vision4leg_torch.envs.mpc_env import A1MPCGymEnv
   from vision4leg_torch.ops import attention as att
   from vision4leg_torch.ops import physics_kernel as pk
-  env, meta, params = build_env(config, dev)
+  env, meta, params = build_env(config, dev, overrides)
   mpc = isinstance(env, A1MPCGymEnv)
   net = build_module(env, params)
   net.init_weights(torch.Generator().manual_seed(0))
@@ -1501,51 +1535,85 @@ STANDING_BAND = 0.02   # base height above the local ground after a reset
 SPLIT_STEPS = 3        # steps timed for the non-flat step's split
 
 
+class StepSplit:
+  """The host-clock split of an env's steps: `step_batch`, `reset` and
+  the methods `spans` names are wrapped, each timed between
+  synchronizes.  `records` gets one dict per step_batch call (seconds by
+  span, and the label of the part of the run it belongs to), the resets
+  that follow it added to it as "resets"; spans inside a reset count as
+  the reset's only.  `mark(label)` labels the steps that follow and opens
+  a record for their first reset (an eval's)."""
+
+  def __init__(self, env, spans):
+    self.env, self.records, self.stack = env, [], []
+    self.label = "collection"
+    self.names = ("step_batch", "reset") + tuple(spans)
+    for name in self.names:
+      setattr(env, name, self._wrap(name, getattr(env, name)))
+
+  def _wrap(self, name, fn):
+    import torch
+
+    def run(*a, **kw):
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      if name == "step_batch":
+        self.records.append({"label": self.label})
+      self.stack.append(name)
+      try:
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+      finally:
+        self.stack.pop()
+      dt = time.perf_counter() - t
+      if name == "reset" or "reset" not in self.stack:
+        if not self.records:
+          self.records.append({"label": self.label})
+        rec = self.records[-1]
+        key = "resets" if name == "reset" else name
+        rec[key] = rec.get(key, 0.0) + dt
+      return out
+    return run
+
+  def mark(self, label):
+    self.label = label
+    self.records.append({"label": f"{label} reset"})
+
+  def close(self):
+    for name in self.names:
+      delattr(self.env, name)
+
+
 def time_nonflat_step(env, states, label):
   """The non-flat step's host-clock split at the batch of `states`: the
   engine window (`_engine_window`: 16 substeps of the per-env engine and
   the post-window contact read), the camera (`_render`: the heightfield
   march, boxes, preprocessing) and the rest of `step_batch`, each
-  between synchronizes, over SPLIT_STEPS steps; then the march alone
-  (`camera._ray_heightfield_t` on the same poses).  Returns ms per step."""
+  between synchronizes (`StepSplit`), over SPLIT_STEPS steps; then the
+  march alone (`camera._ray_heightfield_t` on the same poses).  Returns ms
+  per step."""
   import torch
   from vision4leg_torch.envs import camera as cam
   from vision4leg_torch.envs import terrain as terr
   from vision4leg_torch.physics import maths
-  spent = {"physics": 0.0, "camera": 0.0}
-
-  def timed(name, fn):
-    def run(*a, **kw):
-      torch.cuda.synchronize()
-      t = time.perf_counter()
-      out = fn(*a, **kw)
-      torch.cuda.synchronize()
-      spent[name] += time.perf_counter() - t
-      return out
-    return run
-
-  engine_window, render = env._engine_window, env._render
-  env._engine_window = timed("physics", engine_window)
-  env._render = timed("camera", render)
+  split = StepSplit(env, ("_engine_window", "_render"))
   gen = torch.Generator(device=env.device).manual_seed(17)
   low, high = env.action_low, env.action_high
   E = states.step_counter.shape[0]
   try:
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     for _ in range(SPLIT_STEPS):
       act = low + (high - low) * torch.rand(E, low.shape[0], generator=gen,
                                             device=env.device)
       states, obs, _, _, _ = env.step_batch(states, act, gen)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t
   finally:
-    del env._engine_window, env._render
+    split.close()
   if not bool(torch.isfinite(obs).all()):
     raise AssertionError(f"[{label}] non-finite observations")
-  ms = {k: v / SPLIT_STEPS * 1e3 for k, v in spent.items()}
-  ms["rest"] = total / SPLIT_STEPS * 1e3 - ms["physics"] - ms["camera"]
-  ms["step"] = total / SPLIT_STEPS * 1e3
+  spent = lambda key: sum(r.get(key, 0.0) for r in split.records)
+  ms = {"physics": spent("_engine_window"), "camera": spent("_render"),
+        "step": spent("step_batch")}
+  ms = {k: v / SPLIT_STEPS * 1e3 for k, v in ms.items()}
+  ms["rest"] = ms["step"] - ms["physics"] - ms["camera"]
   if env.cfg.get_image:
     eye, dirs = cam.camera_rays(states.robot.phys.pos,
                                 maths.quat_to_mat(states.robot.phys.quat))
@@ -1653,6 +1721,281 @@ def phase_stairs_window(env, states, card):
   check_repeatable("stairs", args)
   numbers, ms = time_window("stairs", args, card, counts)
   return rep["max_abs_err"], numbers, ms
+
+
+MPC_HF_CONFIG = "config/mpc/locotransformer/thin-heightfield.json"
+MPC_HF_STEPS = 2       # phase 19's collection steps (of the config's 8)
+MPC_HF_EVAL = 2        # phase 19's eval steps, at EVAL_BATCH envs
+RANDOM_SHAPE_CONFIG = "config/rl/static/locotransformer/thin-random-shape.json"
+THIN_CONFIG = "config/rl/static/locotransformer/thin.json"
+RANDOM_SHAPE_MPC_CONFIG = "config/mpc/baseline/thin-random-shape.json"
+SIM2SIM_CONFIG = "config/rl/static/frame_extract4_random_delay/thin-goal.json"
+# bf16 against float32 forwards: the JAX package's band for its bf16
+# collection, relative to max(|x|, 0.05) (tests/test_bf16_inference.py)
+BF16_BAND = 0.08
+
+
+def phase_mpc_heightfield(card, dev):
+  """MPC on the heightfield: config/mpc/locotransformer/thin-heightfield.
+  json at full width, NUM_ENVS envs, fused layer on in collection and
+  eval, through a PPOAgent: the reset (init_collector), an
+  MPC_HF_STEPS-step rollout, an eval of MPC_HF_EVAL steps x EVAL_BATCH
+  envs; the launch counts set to 0 just before the rollout and read after
+  the eval: no window launch (rows 1 and 1h), the layer's exactly; every
+  output finite; each step's host-clock split (engine ticks, controller,
+  camera, the resets that follow it, rest)."""
+  import dataclasses
+
+  import torch
+  from vision4leg_torch.algo.agent import PPOAgent
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter import ppo_locotransformer as starter
+  label = "MPC heightfield"
+  env, meta, params = build_env(MPC_HF_CONFIG, dev)
+  if env.kernel_capable:
+    raise AssertionError(f"[{label}] the env takes the window")
+  split = StepSplit(env, ("_engine_ticks", "controller_tick", "_render"))
+  cfg = dataclasses.replace(common.ppo_config(params),
+                            epoch_frames=MPC_HF_STEPS * NUM_ENVS)
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    t = time.perf_counter()
+    agent = PPOAgent(
+        env=env, ac_module=starter.build_module(env, params), cfg=cfg,
+        num_envs=NUM_ENVS, seed=0, logger=None, save_dir=tmp,
+        num_eval_envs=EVAL_BATCH, obs_norm=meta["obs_norm"],
+        env_time_limit=meta["horizon"], reward_scale=meta["reward_scale"],
+        fused_attention=True, fused_update=True, eval_horizon=MPC_HF_EVAL,
+        device=dev)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t
+  log(f"[{label}] PPOAgent at {NUM_ENVS} envs (init_collector's reset: "
+      f"{env.cfg.settle_steps} settle substeps of the per-env engine): "
+      f"{reset_s:.2f}s")
+  split.records.clear()
+  settles = env.settle_windows
+  pk.robot_window.launches = 0
+  att.fused_transformer_layer.launches = 0
+  att.fused_transformer_layer_bwd.launches = 0
+  t = time.perf_counter()
+  cs, traj, last_v = agent.rollout(agent.collector_state)
+  torch.cuda.synchronize()
+  roll_s = time.perf_counter() - t
+  split.mark("eval")
+  t = time.perf_counter()
+  ret, steps = agent.evaluate()
+  torch.cuda.synchronize()
+  eval_s = time.perf_counter() - t
+  split.close()
+  launches = {"physics_window": pk.robot_window.launches,
+              "physics_window_settle": env.settle_windows - settles,
+              "transformer_layer": att.fused_transformer_layer.launches,
+              "transformer_layer_bwd":
+                  att.fused_transformer_layer_bwd.launches}
+  want = {"physics_window": 0, "physics_window_settle": 0,
+          "transformer_layer": 4 * MPC_HF_STEPS + 2 + 2 * MPC_HF_EVAL,
+          "transformer_layer_bwd": 0}
+  log(f"[{label}] rollout {MPC_HF_STEPS} steps x {NUM_ENVS} envs "
+      f"{roll_s:.2f}s, eval {MPC_HF_EVAL} steps x {EVAL_BATCH} envs "
+      f"{eval_s:.2f}s on {card}; launches {launches}, expected {want} "
+      f"(layer: 4 x {MPC_HF_STEPS} pi_v + 2 last value at B={NUM_ENVS}, "
+      f"2 x {MPC_HF_EVAL} eval at B={EVAL_BATCH}; no window: the per-env "
+      "engine)")
+  if launches != want:
+    raise AssertionError(f"[{label}] launch counts {launches} != {want}")
+  for name in ("obs", "acts", "log_probs", "values", "rewards"):
+    if not torch.isfinite(getattr(traj, name)).all():
+      raise AssertionError(f"[{label}] non-finite {name}")
+  if (traj.obs.shape != (MPC_HF_STEPS, NUM_ENVS, env.obs_dim)
+      or not torch.isfinite(last_v).all() or not torch.isfinite(ret).all()):
+    raise AssertionError(f"[{label}] obs shape {tuple(traj.obs.shape)} or "
+                         "non-finite values / eval returns")
+  splits = []
+  for rec in split.records:
+    ms = {k: v * 1e3 for k, v in rec.items() if k != "label"}
+    ticks = ms.get("_engine_ticks", 0.0)
+    row = {"phase": rec["label"],
+           "step": ms.get("step_batch", 0.0),
+           "engine": ticks - ms.get("controller_tick", 0.0),
+           "controller": ms.get("controller_tick", 0.0),
+           "camera": ms.get("_render", 0.0),
+           "resets": ms.get("resets", 0.0)}
+    row["rest"] = row["step"] - ticks - row["camera"]
+    splits.append(row)
+    log(f"[{label}] {row['phase']} step on the host clock: step_batch "
+        f"{row['step']:.1f} ms = engine ticks {row['engine']:.1f} + "
+        f"controller {row['controller']:.1f} + camera {row['camera']:.1f} "
+        f"+ rest {row['rest']:.1f}; then resets {row['resets']:.1f} ms")
+  log(f"[{label}] terminals {int(traj.terminals.sum())} of "
+      f"{MPC_HF_STEPS * NUM_ENVS}; eval steps {steps.tolist()}; outputs "
+      "finite")
+  return launches, dict(reset_s=reset_s, rollout_s=roll_s, eval_s=eval_s,
+                        terminals=int(traj.terminals.sum()), splits=splits)
+
+
+def phase_random_shape(horizon, card, dev):
+  """thin-random-shape mirrored: the env of RANDOM_SHAPE_CONFIG draws the
+  boxes of THIN_CONFIG's from the same seed (random_shape is ignored, as
+  in the JAX env); a `horizon`-step collection of it on the window and
+  one step of RANDOM_SHAPE_MPC_CONFIG through the hybrid window."""
+  import torch
+  from vision4leg_torch.starter import ppo_locotransformer as starter
+  from vision4leg_torch.starter import ppo_nature_cnn as nature_starter
+  boxes = []
+  for config in (RANDOM_SHAPE_CONFIG, THIN_CONFIG):
+    env, _, _ = build_env(config, dev)
+    draws = env.draw_reset(NUM_ENVS,
+                           torch.Generator(device=dev).manual_seed(5))
+    boxes.append(draws.terrain.boxes)
+  if not torch.equal(*boxes):
+    raise AssertionError("thin-random-shape draws other boxes than thin")
+  log(f"[random shape] {tuple(boxes[0].shape)} boxes at {NUM_ENVS} envs "
+      "equal to thin.json's from the same seed (random_shape ignored)")
+  del boxes, env, draws
+  return {
+      "random-shape collection": phase_collection(
+          "random-shape", RANDOM_SHAPE_CONFIG, starter.build_module,
+          horizon, card, dev),
+      "random-shape MPC baseline collection": phase_collection(
+          "random-shape MPC baseline", RANDOM_SHAPE_MPC_CONFIG,
+          nature_starter.build_module, 1, card, dev)}
+
+
+def check_sim2sim(agent, eval_build):
+  """The eval env's options are those sim2sim_eval_params sets, and an
+  eval reads the training collector's normalizer, the same object."""
+  from vision4leg_torch.data import normalizer as norm
+  cfg = agent.eval_env.cfg
+  for key in ("reset_frame_idx_each_step", "frame_extract",
+              "get_image_interval", "interpolation",
+              "fixed_delay_observation"):
+    if key in eval_build and getattr(cfg, key) != eval_build[key]:
+      raise AssertionError(f"[sim2sim] eval env {key} {getattr(cfg, key)}")
+  if not cfg.reset_frame_idx_each_step or agent.eval_env is agent.env:
+    raise AssertionError("[sim2sim] the eval env is not the transfer env")
+  seen, filt = [], norm.filt_with_img_tail
+  norm.filt_with_img_tail = lambda n, raw, d: (seen.append(n),
+                                               filt(n, raw, d))[1]
+  try:
+    agent.evaluate()
+  finally:
+    norm.filt_with_img_tail = filt
+  if not seen or any(n is not agent.collector_state.normalizer
+                     for n in seen):
+    raise AssertionError("[sim2sim] the eval did not read the training "
+                         "collector's normalizer")
+  log(f"[sim2sim] eval env: reset_frame_idx_each_step "
+      f"{cfg.reset_frame_idx_each_step}, frame_extract {cfg.frame_extract}, "
+      f"get_image_interval {cfg.get_image_interval}; {len(seen)} eval "
+      "steps read the training collector's normalizer (the same object)")
+  return {"eval_frame_extract": cfg.frame_extract}
+
+
+def phase_sim2sim(card, dev):
+  """The sim2sim starter's pieces (starter/ppo_nature_cnn_sim2sim.py) on
+  SIM2SIM_CONFIG: one epoch at NUM_ENVS envs with an eval of EVAL_HORIZON
+  (of the transform's 2000) steps on the transfer env, through
+  `phase_training`; then `check_sim2sim`."""
+  import copy
+
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter import ppo_nature_cnn_sim2sim as sim2sim
+  env, meta, params = build_env(SIM2SIM_CONFIG, dev)
+  eval_env, eval_horizon = common.eval_env_of(
+      params, sim2sim.sim2sim_eval_params, dev)
+  eval_build = sim2sim.sim2sim_eval_params(
+      copy.deepcopy(params["env"]))["env_build"]
+  log(f"[sim2sim] eval env from sim2sim_eval_params: horizon "
+      f"{eval_horizon}, cut to {EVAL_HORIZON}")
+  return phase_training(
+      "sim2sim", env, meta, params, sim2sim.build_module, 1, EVAL_HORIZON,
+      card, fused=False, eval_env=eval_env,
+      check=lambda a: check_sim2sim(a, eval_build))
+
+
+def phase_bf16(env, meta, params, card):
+  """bf16 collection on the thin-goal main path: a float32 and a bf16
+  16-step rollout (fused layer asked for in both), each from a PPOAgent
+  of seed 0 at NUM_ENVS envs, timed in turn; the layer's launches held to
+  the float32 path's count and to 0 under bf16 (its collection forward
+  takes the unfused layer, as the JAX layer routes a non-float32 input);
+  the bf16 twin's pi_v held to the float32 pi_v on the bf16 rollout's
+  first observations within BF16_BAND."""
+  import torch
+  from vision4leg_torch.algo.agent import PPOAgent
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter import ppo_locotransformer as starter
+  cfg = common.ppo_config(params)
+  horizon = cfg.epoch_frames // NUM_ENVS
+  out = {}
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    for name, dtype in (("float32", None), ("bf16", torch.bfloat16)):
+      agent = PPOAgent(
+          env=env, ac_module=starter.build_module(env, params), cfg=cfg,
+          num_envs=NUM_ENVS, seed=0, logger=None, save_dir=tmp,
+          obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"],
+          reward_scale=meta["reward_scale"], fused_attention=True,
+          fused_update=True, inference_dtype=dtype, device=env.device)
+      pk.robot_window.launches = 0
+      att.fused_transformer_layer.launches = 0
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      _, traj, last_v = agent.rollout(agent.collector_state)
+      torch.cuda.synchronize()
+      dt = time.perf_counter() - t
+      launches = {"physics_window": pk.robot_window.launches,
+                  "transformer_layer": att.fused_transformer_layer.launches}
+      want = {"physics_window": horizon,
+              "transformer_layer": 0 if dtype else 4 * horizon + 2}
+      log(f"[{name} collection] {horizon} steps x {NUM_ENVS} envs in "
+          f"{dt:.3f}s = {horizon * NUM_ENVS / dt:.1f} env-steps/s on {card};"
+          f" launches {launches}, expected {want}")
+      if launches != want:
+        raise AssertionError(f"[{name} collection] launch counts")
+      for x in (traj.obs, traj.means, traj.values, traj.log_probs, last_v):
+        if x.dtype != torch.float32 or not torch.isfinite(x).all():
+          raise AssertionError(f"[{name} collection] non-finite or "
+                               f"{x.dtype} stats")
+      out[name] = dict(launches, seconds=dt,
+                       env_steps_per_s=horizon * NUM_ENVS / dt)
+    obs = traj.obs[0]
+    with torch.no_grad():
+      (m16, s16, _), v16 = agent.collect_module.pi_v(
+          obs.to(torch.bfloat16), fused=False)
+      (m32, s32, _), v32 = agent.module.pi_v(obs, fused=False)
+  errs = {}
+  for key, lo, hi in (("mean", m16, m32), ("std", s16, s32),
+                      ("value", v16, v32)):
+    errs[key] = float(((lo.float() - hi).abs()
+                       / hi.abs().clamp(min=0.05)).max())
+  log(f"[bf16 collection] pi_v in bf16 against float32 on the rollout's "
+      f"first {NUM_ENVS} observations: max relative err {errs} (band "
+      f"{BF16_BAND}); float32 / bf16 rollout time "
+      f"{out['float32']['seconds'] / out['bf16']['seconds']:.3f}")
+  if not max(errs.values()) < BF16_BAND:
+    raise AssertionError(f"[bf16 collection] pi_v off by {errs}")
+  out["bf16"]["pi_v_rel_err"] = errs
+  return out
+
+
+def check_action_filter(env, cs, traj):
+  """The filtered commands' range over the envs; the filter's output
+  history holds the last command."""
+  import torch
+  st = cs.env_states
+  act = st.last_action
+  if not torch.equal(st.filter_state.yhist[:, 0], act):
+    raise AssertionError("[action filter] the filter's newest output is "
+                         "not the last command")
+  lo, hi = float(act.min()), float(act.max())
+  log(f"[action filter] filtered joint commands over {act.shape[0]} envs: "
+      f"{lo:.4f}..{hi:.4f} rad; the filter's newest input minus output "
+      f"max {float((st.filter_state.xhist[:, 0] - act).abs().max()):.4f} "
+      "rad")
+  return {"min": lo, "max": hi}
 
 
 def main() -> int:
@@ -1939,7 +2282,27 @@ def main() -> int:
   if paths["mountain training"]["physics_window"] != 0:
     raise AssertionError("the mountain path launched physics_window")
 
-  # --- 19. results ----------------------------------------------------------
+  # --- 19. MPC on the heightfield, on the per-env engine --------------------
+  mpc_hf_launches, mpc_hf = phase_mpc_heightfield(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 20. thin-random-shape on the window, RL and MPC ----------------------
+  collections.update(phase_random_shape(horizon, card, dev))
+  torch.cuda.empty_cache()
+
+  # --- 21. sim2sim: training, and eval on the transfer env ------------------
+  paths["sim2sim training"] = phase_sim2sim(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 22. bf16 collection and the action filter ----------------------------
+  bf16 = phase_bf16(env, meta, params, card)
+  torch.cuda.empty_cache()
+  collections["action-filter collection"] = phase_collection(
+      "action filter", CONFIG, starter.build_module, horizon, card, dev,
+      check_action_filter, overrides={"enable_action_filter": True})
+  torch.cuda.empty_cache()
+
+  # --- 23. results ----------------------------------------------------------
   # launches: the sum over the paths that run a kernel, each read just
   # after it was driven with the counts at 0 (by path beside it)
   by_path = {k: {n: v[n] for n in ("physics_window", "physics_window_settle",
@@ -1948,6 +2311,9 @@ def main() -> int:
              for k, v in paths.items()}
   by_path["MPC collection"] = {"physics_window": mpc_launches,
                                "physics_window_settle": mpc_settles}
+  by_path["MPC heightfield collection + eval"] = mpc_hf_launches
+  by_path.update({f"{k} collection": {n: v[n] for n in (
+      "physics_window", "transformer_layer")} for k, v in bf16.items()})
   by_path.update({k: {n: v[n] for n in v if n.startswith("physics_window")}
                   for k, (v, _) in collections.items()})
   total = lambda name: sum(v.get(name, 0) for v in by_path.values())
@@ -1967,16 +2333,22 @@ def main() -> int:
       launches=sum(row1_paths.values()), launches_by_path=row1_paths,
       shapes="16 substeps at 1024 envs (thin-goal, moving thin-goal and "
              "thin-wide, interpolation and fixed-delay, stairs and "
-             "chair_desk collection) and 8 (eval); the MPC resets' settles "
-             "of settle_steps substeps at 1024 envs, the partial resets' "
-             "envs and 8 (eval); never on a heightfield terrain (mountain, "
-             "thin-heightfield, state-only: 0)",
+             "chair_desk, thin-random-shape, sim2sim, float32 and bf16, "
+             "action-filter collection) and 8 (eval, the sim2sim transfer "
+             "env's among them); the MPC resets' settles of settle_steps "
+             "substeps at 1024 envs, the partial resets' envs and 8 "
+             "(eval); never on a heightfield terrain (mountain, "
+             "thin-heightfield, state-only, MPC heightfield: 0)",
       max_abs_err=max_err, **window), dict(
       name="transformer_layer", route="cuda",
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
       replaces="vision4leg_tpu/ops/attention.py:116",
       launches=total("transformer_layer"),
       launches_by_path=layer_paths("transformer_layer"),
+      launches_note="bf16 collection: 0 launches by design: its forward "
+                    "runs the unfused layer, as the JAX layer routes a "
+                    "non-float32 input (vision4leg_tpu/models/base.py:"
+                    "233-238); the float32 collection beside it launches",
       shapes=f"(B, T, 64), F 256: T 17 at B 1024, 8 (eval) and the "
              f"update's minibatch {minibatch}; T 16 (vision-only) at the "
              f"same; checked also at B 1000 and 512 (T 17), 512 (T 16)",
@@ -1995,8 +2367,9 @@ def main() -> int:
                ":125-136)",
       launches=sum(row1h_paths.values()), launches_by_path=row1h_paths,
       shapes="5 substeps at 1024 envs (collection: LocoTransformer, "
-             "vision-only and the vision-only Nature-CNN baseline) and 8 "
-             "(eval)",
+             "vision-only, the vision-only Nature-CNN baseline and the "
+             "thin-random-shape Nature-CNN baseline) and 8 (eval); never on "
+             "the MPC heightfield (0: the per-env engine)",
       **hybrid)]
   print(json.dumps({"kernels": kernels, "card": card,
                     "window_ms": {"rollout": window_ms,
@@ -2008,6 +2381,10 @@ def main() -> int:
                     "stairs_window": dict(max_abs_err=stairs_err,
                                           **stairs_numbers),
                     "nonflat_step_ms": nonflat_split,
+                    "mpc_heightfield": mpc_hf,
+                    "bf16_collection": bf16,
+                    "action_filter_range": collections[
+                        "action-filter collection"][0]["checked"],
                     "collection_memory_gib": {
                         k: {"peak": v["max_memory_gib"],
                             "above_start": v["added_memory_gib"]}

@@ -240,15 +240,22 @@ def test_short_horizon_warning(thin_goal, tmp_path):
 
 
 def test_unported_options_raise(thin_goal, tmp_path):
+  """Multi-device data parallelism stays refused; bf16 collection and a
+  separate eval env are ported (tests/test_torch_bf16.py and
+  tests/test_torch_sim2sim.py hold them against JAX)."""
   env, _ = thin_goal
   kw = dict(env=env, cfg=_cfg(), num_envs=NUM_ENVS, seed=0,
             logger=_NullLogger(tmp_path), save_dir=str(tmp_path),
             device="cpu")
-  for extra, match in ((dict(mesh=object()), "item 6"),
-                       (dict(inference_dtype=torch.bfloat16), "bf16"),
-                       (dict(eval_env=env), "sim2sim")):
-    with pytest.raises(NotImplementedError, match=match):
-      PPOAgent(ac_module=_net(env), **kw, **extra)
+  with pytest.raises(NotImplementedError, match="item 6"):
+    PPOAgent(ac_module=_net(env), mesh=object(), **kw)
+  with warnings.catch_warnings():
+    warnings.simplefilter("ignore")          # the short-horizon warning
+    agent = PPOAgent(ac_module=_net(env), inference_dtype=torch.bfloat16,
+                     eval_env=env, **kw)
+  assert agent.eval_env is env and agent.inference_dtype == torch.bfloat16
+  assert next(agent.collect_module.parameters()).dtype == torch.bfloat16
+  assert next(agent.module.parameters()).dtype == torch.float32
 
 
 def test_starter_pieces_read_the_thin_goal_config(thin_goal, monkeypatch):

@@ -90,6 +90,7 @@ def _env_state(js):
       motor_hist=t(js.motor_hist), imu_hist=t(js.imu_hist),
       disp_hist=t(js.disp_hist), last_action_hist=t(js.last_action_hist),
       last_action=t(js.last_action), last_base_pos=t(js.last_base_pos),
+      filter_state=convert.filter_state(js.filter_state),
       frames=t(js.frames), frame_idx=t(js.frame_idx),
       interp_delay=t(js.interp_delay), step_counter=t(js.step_counter))
 

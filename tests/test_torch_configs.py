@@ -1,8 +1,8 @@
-"""The JSON configs the port runs, and those it refuses, on the CPU.
+"""The JSON configs the port runs, on the CPU: all of them.
 
-Each config the port runs builds its env (on the CPU, without a reset)
-and its torch starter's actor-critic at the config's width, and the
-module takes a batch of the env's observation layout.  The starter
+Each config builds its env (on the CPU, without a reset) and its torch
+starter's actor-critic at the config's width, and the module takes a
+batch of the env's observation layout.  The starter
 follows the config's directory, as the reference's README pairs them:
 LocoTransformer for `locotransformer*` (the challenge terrains'
 `challenge/locotransformer` among them), the vision-only LocoTransformer
@@ -10,11 +10,9 @@ for `mpc_vision_only/locotransformer`, the Nature-CNN baseline for
 `naive_baseline`, `frame_extract4*`, `mpc/baseline` and
 `challenge/baseline`, its vision-only form for `mpc_vision_only/baseline`,
 and the proprio-only `ppo_state` for `state-only-baseline`.  Each
-thin-random-shape config is refused (`random_shape`, which the JAX env
-ignores), and each MPC thin-heightfield config (the port's MPC env steps
-through the physics window, which models flat ground); the MPC env
-refuses the MMDR options and moving obstacles, which the JAX MPC env
-ignores.
+thin-random-shape config builds with a warning: `random_shape` is
+ignored, as the JAX env ignores it.  The MPC env refuses the MMDR options
+and moving obstacles, which the JAX MPC env ignores.
 """
 import glob
 import json
@@ -45,8 +43,9 @@ CHALLENGE = ("chair_desk", "hill", "mountain", "stairs")
 
 
 def _ported():
-  """The 42 configs on the sparse-family terrains (flat ground, boxes)
-  and the 22 of the heightfield and challenge terrains."""
+  """The 42 configs on the sparse-family terrains (flat ground, boxes),
+  the 22 of the heightfield and challenge terrains, the 4 MPC ones on the
+  heightfield and the 16 thin-random-shape ones."""
   out = [f"rl/static/{d}/{t}" for d in RL_STATIC for t in FLAT]
   out.append("rl/static/locotransformer/thin-wide")
   out += [f"rl/moving/{d}/{t}" for d in RL_MOVING for t in FLAT]
@@ -60,28 +59,17 @@ def _ported():
   out += [f"rl/challenge/{d}/{t}" for d in ("baseline", "locotransformer")
           for t in CHALLENGE]
   out.append("rl/challenge/locotransformer/chair_desk_ent")
+  out += [f"{d}/thin-heightfield" for d in MPC + (
+      "mpc/locotransformer", "mpc_vision_only/locotransformer")]
+  out += [f"rl/{d}/thin-random-shape" for d in
+          [f"static/{d}" for d in RL_STATIC + ("locotransformer",)]
+          + [f"moving/{d}" for d in RL_MOVING]]
+  out += [f"{d}/thin-random-shape" for d in MPC + (
+      "mpc/locotransformer", "mpc_vision_only/locotransformer")]
   return out
 
 
-def _refused():
-  """The configs that set random_shape, and the MPC configs on a
-  heightfield terrain, each with the reason it is refused."""
-  out = {}
-  for path in glob.glob(os.path.join(ROOT, "**", "*.json"), recursive=True):
-    with open(path) as f:
-      params = json.load(f)
-    build = params["env"].get("env_build", {})
-    name = os.path.relpath(path, ROOT)[:-5]
-    if build.get("random_shape"):
-      out[name] = "random_shape"
-    elif (params["env_name"] == "A1MoveGroundMPC"
-          and "heightfield" in build.get("terrain_type", "")):
-      out[name] = "non-flat terrain .* queue 1 item 2"
-  return dict(sorted(out.items()))
-
-
 PORTED = _ported()
-REFUSED = _refused()
 
 
 def _starter(name):
@@ -98,29 +86,33 @@ def _params(name):
     return json.load(f)
 
 
-def test_the_port_runs_64_configs_and_refuses_20():
-  assert len(PORTED) == len(set(PORTED)) == 64
+def test_the_port_runs_all_84_configs():
+  assert len(PORTED) == len(set(PORTED)) == 84
   for name in PORTED:
     assert os.path.exists(os.path.join(ROOT, name + ".json")), name
-  # every config of the repo but the refused ones and the experiments'
+  # every config of the repo but the experiments' and the seven of the
+  # main paths, which other files hold; none is refused
   every = {os.path.relpath(p, ROOT)[:-5] for p in glob.glob(
       os.path.join(ROOT, "**", "*.json"), recursive=True)}
-  assert every - set(PORTED) - set(REFUSED) == {
+  assert len(every) == 91
+  assert every - set(PORTED) == {
       "experiments/locotransformer/thin-goal-cvf",
       "mpc/locotransformer/thin-goal", "mpc/locotransformer/thin",
       "mpc_vision_only/locotransformer/thin-goal",
       "mpc_vision_only/locotransformer/thin",
       "rl/static/locotransformer/thin-goal",
       "rl/static/locotransformer/thin"}
-  # 16 thin-random-shape, 4 MPC thin-heightfield
-  reasons = list(REFUSED.values())
-  assert len(REFUSED) == 20 and reasons.count("random_shape") == 16
+  assert sum(n.endswith("thin-random-shape") for n in PORTED) == 16
 
 
 @pytest.mark.parametrize("name", PORTED)
 def test_config_builds_env_and_module(name):
   params = _params(name)
-  env, meta = get_env(params["env_name"], params["env"], device="cpu")
+  if params["env"]["env_build"].get("random_shape"):
+    with pytest.warns(UserWarning, match="random_shape=True is ignored"):
+      env, meta = get_env(params["env_name"], params["env"], device="cpu")
+  else:
+    env, meta = get_env(params["env_name"], params["env"], device="cpu")
   module = _starter(name).build_module(env, params)
   obs = torch.zeros(2, env.obs_dim)
   with torch.no_grad():
@@ -128,13 +120,6 @@ def test_config_builds_env_and_module(name):
     value = module.v(obs)
   assert mean.shape == std.shape == (2, env.cfg.action_dim)
   assert value.shape == (2, 1) and meta["obs_norm"]
-
-
-@pytest.mark.parametrize("name", REFUSED)
-def test_config_is_refused(name):
-  params = _params(name)
-  with pytest.raises(NotImplementedError, match=REFUSED[name]):
-    get_env(params["env_name"], params["env"], device="cpu")
 
 
 @pytest.mark.parametrize("option", ["reset_frame_idx",

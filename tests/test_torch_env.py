@@ -184,9 +184,12 @@ def test_env_rejects_what_it_does_not_run():
     tenv_mod.A1GymEnv(
         tenv_mod.EnvConfig(terrain_type="random_sphere_with_subgoal"),
         device="cpu")
-  with pytest.raises(NotImplementedError, match="queue 1 items 3-4"):
-    tenv_mod.A1GymEnv(tenv_mod.EnvConfig(enable_action_filter=True),
-                      device="cpu")
+  with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    tenv_mod.A1GymEnv(tenv_mod.EnvConfig(random_dir=True), device="cpu")
+  # the action filter is ported: the env builds with it
+  env = tenv_mod.A1GymEnv(tenv_mod.EnvConfig(enable_action_filter=True),
+                          device="cpu")
+  assert env._filter_coeffs.a[0] == 1.0
 
 
 def test_env_draws_its_own_randomness():

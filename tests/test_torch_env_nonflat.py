@@ -351,8 +351,12 @@ def test_mountain_reset_and_step_match_jax(monkeypatch):
                              np.asarray(jstate.robot.phys.pos), atol=3e-5)
 
 
-def test_mpc_env_refuses_a_heightfield_config():
+def test_mpc_env_builds_a_heightfield_config():
+  """The MPC env on a heightfield steps through the per-env engine
+  (tests/test_torch_mpc_nonflat.py holds it against JAX); its window
+  entry still raises."""
   params = _params("mpc/locotransformer/thin-heightfield")
-  with pytest.raises(NotImplementedError,
-                     match="mpc_env.py:328-329.*queue 1 item 2"):
-    torch_get_env(params["env_name"], params["env"], device="cpu")
+  env, _ = torch_get_env(params["env_name"], params["env"], device="cpu")
+  assert not env.kernel_capable
+  with pytest.raises(RuntimeError, match="models flat ground"):
+    env._robot_window()

@@ -35,7 +35,10 @@ for n in ("vision4leg_torch.algo.agent",
           "vision4leg_torch.envs.mpc_env",
           "vision4leg_torch.mpc.convex_mpc",
           "vision4leg_torch.mpc.controllers",
-          "vision4leg_torch.mpc.leg_kinematics"):
+          "vision4leg_torch.mpc.leg_kinematics",
+          "vision4leg_torch.robots.action_filter",
+          "vision4leg_torch.envs.wrappers",
+          "vision4leg_torch.starter.ppo_nature_cnn_sim2sim"):
   assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

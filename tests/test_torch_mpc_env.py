@@ -249,19 +249,34 @@ def test_agent_builds_on_the_mpc_env(tmp_path):
   assert agent.horizon == 64 and agent.env.settle_windows == 1
 
 
-@pytest.mark.parametrize("option", ["inference_dtype", "mesh", "eval_env",
+def test_agent_refuses_unported_options_on_the_mpc_env(tmp_path):
+  """Multi-device data parallelism stays refused on the MPC env."""
+  with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    _agent_on_mpc_env(tmp_path, mesh=object())
+
+
+@pytest.mark.parametrize("option", ["inference_dtype", "eval_env",
                                     "curriculum"])
-def test_agent_refuses_unported_options_on_the_mpc_env(tmp_path, option):
-  """The options the port does not run stay refused on the MPC env."""
+def test_agent_takes_the_ported_options_on_the_mpc_env(tmp_path, option):
+  """bf16 collection, a separate eval env and the curriculum cap, on the
+  MPC env."""
+  env, _ = torch_get_env(_params(policy_freq=2)["env_name"],
+                         _params(policy_freq=2)["env"], device="cpu")
+  env.cfg = dataclasses.replace(env.cfg, settle_steps=20)
   if option == "curriculum":
-    env, _ = torch_get_env(_params()["env_name"], _params()["env"],
-                           device="cpu")
     env.cfg = dataclasses.replace(env.cfg, curriculum=True)
-    kw = dict(env=env)
+    agent = _agent_on_mpc_env(tmp_path, env=env)
+    assert agent._curriculum_episode_cap() == 1000
+  elif option == "eval_env":
+    agent = _agent_on_mpc_env(tmp_path, eval_env=env)
+    assert agent.eval_env is env and agent.env is not env
   else:
-    kw = {option: object()}
-  with pytest.raises(NotImplementedError, match="queue 1 item"):
-    _agent_on_mpc_env(tmp_path, **kw)
+    agent = _agent_on_mpc_env(tmp_path, inference_dtype=torch.bfloat16)
+    obs = agent.collector_state.raw_obs.to(torch.bfloat16)
+    with torch.no_grad():
+      (mean, _, _), value = agent.collect_module.pi_v(obs)
+    assert mean.dtype == value.dtype == torch.bfloat16
+    assert torch.isfinite(mean.float()).all()
 
 
 def test_env_walks_forward_on_plane():

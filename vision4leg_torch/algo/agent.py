@@ -9,6 +9,7 @@ passed (then every kernel's plain version runs).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import os.path as osp
@@ -24,6 +25,7 @@ from vision4leg_torch.algo.ppo import PPOConfig, PPOLearner
 from vision4leg_torch.algo.on_policy_base import AdamState
 from vision4leg_torch.collector import rollout as rollout_lib
 from vision4leg_torch.data import normalizer as norm
+from vision4leg_torch.envs import wrappers
 
 
 def _flatten(x, prefix: str, out: Dict[str, torch.Tensor]):
@@ -82,24 +84,29 @@ class PPOAgent:
     A module without `pi_v` (the Nature-CNN models) is collected with `pi`
     then `v`, as the JAX collector does; it has no fused layer, and asking
     for one raises where the JAX agent turns it off.
+
+    inference_dtype (torch.bfloat16) runs the collection forward on a
+    reduced-precision twin of the module (`collect_module`, its weights
+    cast down once per rollout; collector/rollout.py).  That forward takes
+    the unfused layer: the JAX layer routes a non-float32 input there even
+    with fused=True (vision4leg_tpu/models/base.py:233-238); the update
+    and eval stay float32 with their fused setting.
+    eval_env evaluates on another env (sim-to-sim transfer, reference
+    starter/ppo_nature_cnn_sim2sim.py:43-60) with the training
+    collector's obs normalizer, the same object; eval_horizon defaults to
+    max_episode_frames.  An env config with `curriculum` caps each epoch's
+    episodes by the curriculum ramp (`_curriculum_episode_cap`).
     """
-    if inference_dtype is not None:
-      raise NotImplementedError("bf16 collection (inference_dtype) is not "
-                                "ported (ROADMAP queue 1 item 3, left out)")
     if mesh is not None:
       raise NotImplementedError("multi-device data parallelism is ROADMAP "
                                 "queue 1 item 6")
-    if eval_env is not None:
-      raise NotImplementedError("a separate (sim2sim) eval env is ROADMAP "
-                                "queue 1 item 3")
-    if getattr(env.cfg, "curriculum", False):
-      raise NotImplementedError("the curriculum wrapper (envs/wrappers.py) "
-                                "is ROADMAP queue 1 item 3, left out")
     self.device = resolve_device(device)
-    if env.device != self.device:
-      raise ValueError(f"PPOAgent: env on {env.device}, agent on "
-                       f"{self.device}")
+    for e in (env, eval_env):
+      if e is not None and e.device != self.device:
+        raise ValueError(f"PPOAgent: env on {e.device}, agent on "
+                         f"{self.device}")
     self.env = env
+    self.eval_env = eval_env if eval_env is not None else env
     self.cfg = cfg
     self.num_envs = num_envs
     self.num_eval_envs = num_eval_envs
@@ -144,12 +151,29 @@ class PPOAgent:
     def apply_v(m, x):
       return m.v(x, **fused_kw)
 
+    if inference_dtype == torch.float32:
+      inference_dtype = None
+    self.inference_dtype = inference_dtype
+    # the collection forward's module and fused setting (routing by dtype,
+    # decided here, before any launch)
+    coll, fused_collect, coll_kw = self.module, fused_attention, fused_kw
+    if inference_dtype is not None:
+      coll = copy.deepcopy(self.module).to(inference_dtype)
+      fused_collect, coll_kw = False, {k: False for k in fused_kw}
+      if fused_attention or fused_update:
+        self._log(
+            f"{inference_dtype} collection: its forward runs the unfused "
+            "transformer layer, as the JAX layer routes a non-float32 input "
+            "(vision4leg_tpu/models/base.py:233-238); the update keeps the "
+            "fused layer")
+    self.collect_module = coll
+
     if has_fused:
       def apply_pi_v(x):
-        return self.module.pi_v(x, fused=fused_attention)
+        return coll.pi_v(x, fused=fused_collect)
     else:
       def apply_pi_v(x):
-        return self.module.pi(x), self.module.v(x)
+        return coll.pi(x), coll.v(x)
 
     self.apply_pi = apply_pi
     self.learner = PPOLearner(cfg, apply_pi, apply_v, self.module)
@@ -167,12 +191,20 @@ class PPOAgent:
           f"oscillation is expected (see PARITY.md horizon ablation). "
           f"Use --num_envs <= {cfg.epoch_frames // 64} for T >= 64.",
           stacklevel=2)
+    # CurriculumWrapperEnv (curriculum_wrapper_env.py:27-92): episode
+    # length ramped 1000 -> 2000 on a cubic schedule, fed to the collector
+    # as each epoch's episode cap (JAX agent.py:218-226)
+    self.curriculum = bool(getattr(env.cfg, "curriculum", False))
+    self._curric = (1000, 2000, 10_000_000)
+    if self.curriculum:
+      env_time_limit = max(env_time_limit, self._curric[1])
     self.rollout = rollout_lib.make_rollout_fn(
-        env, apply_pi_v,
-        lambda x: apply_v(self.module, x), horizon, cfg.max_episode_frames,
-        cfg.discount, env.cfg.proprio_dim, obs_norm=obs_norm,
-        action_low=env.action_low, action_high=env.action_high,
-        env_time_limit=env_time_limit, reward_scale=reward_scale)
+        env, apply_pi_v, lambda x: coll.v(x, **coll_kw), horizon,
+        cfg.max_episode_frames, cfg.discount, env.cfg.proprio_dim,
+        obs_norm=obs_norm, action_low=env.action_low,
+        action_high=env.action_high, env_time_limit=env_time_limit,
+        reward_scale=reward_scale, inference_dtype=inference_dtype,
+        weights=(self.module, coll))
     self.collector_state = rollout_lib.init_collector(
         env, num_envs,
         torch.Generator(device=self.device).manual_seed(s_coll))
@@ -187,16 +219,24 @@ class PPOAgent:
     if self.device.type == "cuda":
       torch.cuda.synchronize(self.device)
 
+  def _log(self, msg: str):
+    if self.logger is not None:
+      self.logger.log(msg)
+    else:
+      print(msg, flush=True)
+
   @torch.no_grad()
   def evaluate(self):
     """Deterministic eval rollout (collector/base.py:235-288: action
-    tanh(mean), frozen normalizer) of num_eval_envs fresh envs over
-    eval_horizon steps; returns (returns, steps) per env.  Steps go
-    through env.step_batch, which the JAX package declares semantically
-    identical to its vmapped per-env step (envs/env.py:585-593); the port
-    has no per-env step."""
-    env = self.env
-    low, high = env.action_low, env.action_high
+    tanh(mean), frozen normalizer) of num_eval_envs fresh envs of the
+    eval env over eval_horizon steps; returns (returns, steps) per env.
+    The observations are normalized by the training collector's
+    normalizer and the actions mapped into the training env's bounds, as
+    the JAX agent does.  Steps go through env.step_batch, which the JAX
+    package declares semantically identical to its vmapped per-env step
+    (envs/env.py:585-593); the port has no per-env step."""
+    env = self.eval_env
+    low, high = self.env.action_low, self.env.action_high
     nrm = self.collector_state.normalizer
     states, raw = env.reset(self.num_eval_envs, self.eval_gen)
     zeros = lambda: torch.zeros(self.num_eval_envs, device=self.device)
@@ -230,8 +270,22 @@ class PPOAgent:
             else torch.zeros((), device=nrm.var.device)),
     }
 
+  def _curriculum_episode_cap(self) -> Optional[int]:
+    """This epoch's episode-length cap from the curriculum ramp, or None
+    (JAX agent.py:515-534): each env counts its own steps, and the
+    reference's env_builder.py:350-354 passes num_parallel_envs=8, which
+    divides the ramp's length by 8."""
+    if not self.curriculum:
+      return None
+    start, end, total = self._curric
+    return int(wrappers.curriculum_episode_length(
+        self.total_frames // self.num_envs, episode_length_start=start,
+        episode_length_end=end, curriculum_steps=total,
+        num_parallel_envs=8))
+
   def train_epoch(self, max_ep: Optional[int] = None):
-    """Collect one epoch and update on it; returns the metrics (tensors)
+    """Collect one epoch (episodes capped at max_ep, else
+    max_episode_frames) and update on it; returns the metrics (tensors)
     and records the seconds of each phase in `phase_seconds`."""
     t0 = time.time()
     cs, traj, last_value = self.rollout(self.collector_state, max_ep)
@@ -379,7 +433,7 @@ class PPOAgent:
     last_ckpt = time.time()
     for epoch in range(start_epoch, cfg.num_epochs):
       t0 = time.time()
-      metrics = self.train_epoch()
+      metrics = self.train_epoch(self._curriculum_episode_cap())
       # one device->host transfer for all epoch scalars
       cs = self.collector_state
       keys = list(metrics)

@@ -73,7 +73,8 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
                     proprio_dim: int, obs_norm: bool = True,
                     action_low=None, action_high=None,
                     env_time_limit: int = 1000, reward_scale: float = 1.0,
-                    act_fn: Callable = None):
+                    act_fn: Callable = None, inference_dtype=None,
+                    weights=None):
   """Build `rollout(cs, max_ep=None) -> (cs, Transition, last_v)`.
 
   apply_pi_v(obs) -> ((mean, std, logstd), value) runs policy and value
@@ -81,12 +82,28 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
   act_fn(obs, gen) -> (act, logp, env_act, mean, std) replaces the
   Gaussian sample + NormAct (the hierarchical collector's hook in the JAX
   package; tests feed pre-drawn noise through it).
+  inference_dtype (torch.bfloat16): the collection forward in reduced
+  precision (JAX rollout.py:105-139).  weights = (module, twin): apply_pi_v
+  and apply_v run `twin`, whose weights are the float32 `module`'s cast
+  down once per rollout; each observation is cast down, and (mean, std,
+  value) come back in float32, so sampling, log-probs and the stored
+  behaviour stats stay float32.  The PPO update stays float32.
   """
 
   def normalize(nstate, raw):
     if not obs_norm:
       return raw
     return norm.filt_with_img_tail(nstate, raw, proprio_dim)
+
+  if inference_dtype is not None:
+    _pi_v, _v = apply_pi_v, apply_v
+
+    def apply_pi_v(x):  # noqa: F811 (the reduced-precision forward)
+      (mean, std, logstd), value = _pi_v(x.to(inference_dtype))
+      return (mean.float(), std.float(), logstd.float()), value.float()
+
+    def apply_v(x):  # noqa: F811
+      return _v(x.to(inference_dtype)).float()
 
   @torch.no_grad()
   def step_fn(cs: CollectorState, max_ep: int):
@@ -146,6 +163,9 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
   def rollout(cs: CollectorState, max_ep: int | None = None):
     if max_ep is None:
       max_ep = max_episode_frames
+    if inference_dtype is not None:
+      module, twin = weights
+      twin.load_state_dict(module.state_dict())   # cast down once
     trs = []
     for _ in range(horizon):
       cs, tr = step_fn(cs, max_ep)

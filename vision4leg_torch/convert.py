@@ -14,7 +14,7 @@ import torch
 
 from vision4leg_torch.envs.terrain import TerrainState
 from vision4leg_torch.physics import engine
-from vision4leg_torch.robots import a1
+from vision4leg_torch.robots import a1, action_filter
 
 
 def tensor(x, device="cpu") -> torch.Tensor:
@@ -45,6 +45,12 @@ def dynamics(dyn, device="cpu") -> a1.DynamicsParams:
       for f in ("kp", "kd", "strength_ratios", "motor_friction",
                 "joint_friction", "control_latency", "lateral_friction",
                 "mass_scale", "inertia_scale")})
+
+
+def filter_state(fs, device="cpu") -> action_filter.FilterState:
+  """The Butterworth filter's histories (the JAX EnvState.filter_state)."""
+  return action_filter.FilterState(xhist=tensor(fs.xhist, device),
+                                   yhist=tensor(fs.yhist, device))
 
 
 def terrain(ts, device="cpu") -> TerrainState:

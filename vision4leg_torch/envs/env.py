@@ -34,6 +34,7 @@ JAX package's draws.  Each draws only what the config turns on.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -45,7 +46,7 @@ from vision4leg_torch.envs import dynamics_rando, tasks
 from vision4leg_torch.envs import terrain as terr
 from vision4leg_torch.ops import physics_kernel
 from vision4leg_torch.physics import contact, engine, maths
-from vision4leg_torch.robots import a1, a1_model
+from vision4leg_torch.robots import a1, a1_model, action_filter
 from vision4leg_torch.robots import a1_params as P
 
 
@@ -131,9 +132,9 @@ class EnvConfig:
     return self.proprio_dim + self.image_dim
 
 
-# options of the JAX env this port does not run yet (ROADMAP queue 1 items
-# 3-4)
-_UNPORTED = ("enable_action_filter", "random_dir", "rotate_sensor")
+# options of the JAX env this port does not run yet (ROADMAP queue 1 item
+# 4)
+_UNPORTED = ("random_dir", "rotate_sensor")
 
 
 class BlindSpots(NamedTuple):
@@ -174,6 +175,7 @@ class EnvState:
   last_action_hist: torch.Tensor  # (E, 3, 12)
   last_action: torch.Tensor       # (E, 12)
   last_base_pos: torch.Tensor     # (E, 3)
+  filter_state: action_filter.FilterState  # (E, 2, 12) each history
   frames: torch.Tensor            # (E, num_stored, 64, 64) or (E, 1, 1, 1)
   frame_idx: torch.Tensor         # (E, 4) int32 ring slots observed
   interp_delay: torch.Tensor      # (E,) int32
@@ -207,6 +209,10 @@ class A1GymEnv:
       lb, ub = P.JOINT_LOWER, P.JOINT_UPPER
     self._act_lb12 = torch.tensor(lb, dtype=torch.float32, device=self.device)
     self._act_ub12 = torch.tensor(ub, dtype=torch.float32, device=self.device)
+    if cfg.enable_action_filter:
+      # sampling at the control rate (minitaur.py:1445-1448)
+      self._filter_coeffs = action_filter.make_coeffs(
+          1.0 / (cfg.time_step_s * cfg.num_action_repeat))
     self._template = None
 
   def _setup(self, cfg: EnvConfig, device):
@@ -220,11 +226,11 @@ class A1GymEnv:
           "rgbd=True: the JAX env accepts and ignores it; the port rejects "
           "it (ROADMAP queue 3)")
     if cfg.random_shape:
-      raise NotImplementedError(
-          "random_shape=True: the JAX env accepts and ignores it (its "
-          "terrain generators never pass it to gen_blocks_sparse, so the "
-          "thin-random-shape configs run on plain pillars there); the port "
-          "rejects it (ROADMAP queue 3)")
+      warnings.warn(
+          "random_shape=True is ignored: the JAX env accepts it and never "
+          "passes it to gen_blocks_sparse, so the thin-random-shape configs "
+          "run on plain pillars there, and the port mirrors that (ROADMAP "
+          "section 3)", stacklevel=3)
     if cfg.terrain_type not in terr.TERRAIN_GENERATORS:
       raise NotImplementedError(
           f"terrain {cfg.terrain_type!r} is not ported yet (ROADMAP queue "
@@ -233,7 +239,7 @@ class A1GymEnv:
     if unported:
       raise NotImplementedError(
           f"env options {unported} are not ported yet (ROADMAP queue 1 "
-          "items 3-4)")
+          "item 4)")
     self.cfg = cfg
     self._flat = cfg.terrain_type in terr.FLAT_TERRAINS
     self.device = resolve_device(device)
@@ -393,7 +399,8 @@ class A1GymEnv:
         imu_hist=torch.zeros(E, 3, 4, device=self.device),
         disp_hist=torch.zeros(E, 3, 3, device=self.device),
         last_action_hist=torch.zeros(E, 3, 12, device=self.device),
-        last_action=cmd, last_base_pos=pos.clone(), frames=frames,
+        last_action=cmd, last_base_pos=pos.clone(),
+        filter_state=action_filter.init_state(cmd), frames=frames,
         frame_idx=frame_idx, interp_delay=interp_delay,
         step_counter=torch.zeros(E, dtype=torch.int32, device=self.device))
     m, imu, disp = self._sensor_readings(state)
@@ -488,10 +495,16 @@ class A1GymEnv:
                          self._act_ub12)
 
   def _step_pre(self, state: EnvState, action, draws: StepDraws):
-    """The action expansion and, with `moving`, the obstacles' step on the
-    counter before its increment (JAX env.py:477-479); the moved terrain
-    is stored, so the window, the camera and the next step all see it."""
+    """The action expansion, the Butterworth filter with
+    enable_action_filter (minitaur.Step:277-279, JAX env.py:466-469) and,
+    with `moving`, the obstacles' step on the counter before its
+    increment (JAX env.py:477-479); the moved terrain is stored, so the
+    window, the camera and the next step all see it."""
     act12 = self._expand_action(action)
+    if self.cfg.enable_action_filter:
+      fstate, act12 = action_filter.apply(self._filter_coeffs,
+                                          state.filter_state, act12)
+      state = state.replace(filter_state=fstate)
     state = state.replace(last_action=act12,
                           last_base_pos=state.robot.phys.pos)
     if self.cfg.moving:
@@ -524,14 +537,18 @@ class A1GymEnv:
     return physics_kernel.robot_window(*args, **kw)
 
   def _contact_fn(self, terrain: terr.TerrainState, dyn: a1.DynamicsParams,
-                  base_xy):
+                  base_xy=None):
     """The per-env engine's contact model (JAX `_contact_fn`, env.py
     :232-242): the terrain's ground, the NEAR_BOXES boxes nearest to
-    base_xy (E, 2), the obstacle spheres; ground friction
-    lateral_friction * fric_coeff[0], obstacle friction lateral_friction."""
+    base_xy (E, 2) (every box without it), the obstacle spheres; ground
+    friction lateral_friction * fric_coeff[0], obstacle friction
+    lateral_friction."""
     h_fn, n_fn = terr.height_fns(terrain, self._flat)
+    boxes = terrain.boxes
+    if base_xy is not None:
+      boxes = self._pruned_boxes(boxes, base_xy)
     return contact.make_terrain_contact_fn(
-        h_fn, n_fn, boxes=self._pruned_boxes(terrain.boxes, base_xy),
+        h_fn, n_fn, boxes=boxes,
         spheres=terrain.obstacle_spheres,
         friction=dyn.lateral_friction * self.cfg.fric_coeff[0],
         box_friction=dyn.lateral_friction)
@@ -570,10 +587,14 @@ class A1GymEnv:
     rs, _ = a1.robot_step(self.model, states.robot, act12, states.dyn, cfn,
                           cfg.num_action_repeat * cfg.substeps,
                           cfg.enable_action_interpolation)
+    return rs, self._engine_pen(rs, cfn)
+
+  def _engine_pen(self, rs: a1.RobotState, cfn):
+    """The [ground, obstacle] penetration (E, P, 2) of the robot's contact
+    points in the world of the contact function `cfn`."""
     kin = engine.fwd_kinematics(self.model, rs.phys)
     cpos, cvel, _ = engine.contact_points_world(self.model, rs.phys, kin)
-    _, pen = cfn(cpos, cvel, self.model.cp_radius)
-    return rs, pen
+    return cfn(cpos, cvel, self.model.cp_radius)[1]
 
   def _step_post(self, state: EnvState, rs, act12, pen, draws: StepDraws):
     cfg = self.cfg

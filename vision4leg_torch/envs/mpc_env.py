@@ -12,17 +12,22 @@ Reference: vision4leg/envs/locomotion_gym_mpc_env_with_rich_information.py
   * task = MoveForward/Goal with num_action_repeat * policy_freq scaling
     (env_builder.py:420-455).
 
-`step_batch` runs each tick's action-repeat window as one launch of the
-physics-window kernel over all envs in its hybrid mode (stance legs apply
-the MPC feedforward torque, swing legs track the Raibert targets under
-PD); the controller stack between windows is batched torch ops.  The
-camera, the box pruning and the task plumbing are A1GymEnv's.  Non-flat
-terrains are refused (the window models flat ground).
+On the flat terrains `step_batch` runs each tick's action-repeat window
+as one launch of the physics-window kernel over all envs in its hybrid
+mode (stance legs apply the MPC feedforward torque, swing legs track the
+Raibert targets under PD); the controller stack between windows is
+batched torch ops.  On the heightfield terrains it runs the JAX env's
+per-env `step` (mpc_env.py:185-310) batched over the envs instead: the
+same ticks over the per-env engine (`a1.substep` with the hybrid torque),
+each env's heightfield in the contact model and the camera, and no
+window launch.  The camera, the box pruning and the task plumbing are
+A1GymEnv's.
 
 Reset settles every env for settle_steps * substeps substeps from the
-standing pose at its own start position, as the reference does, through
-one non-hybrid launch of the same kernel (boxes pruned at the start xy);
-`settle_windows` counts those launches.
+standing pose at its own start position, as the reference does: on flat
+ground through one non-hybrid launch of the same kernel (boxes pruned at
+the start xy; `settle_windows` counts those launches), on a heightfield
+through the per-env engine with every box, as the JAX reset does.
 """
 from __future__ import annotations
 
@@ -102,13 +107,6 @@ class A1MPCGymEnv(A1GymEnv):
           "ignores them; the port rejects them (no shipped config sets "
           "them)")
     self._setup(cfg, device)
-    if not self.kernel_capable:
-      raise NotImplementedError(
-          f"A1MoveGroundMPC on the non-flat terrain {cfg.terrain_type!r}: "
-          "the port's MPC env steps through the physics window, which "
-          "models flat ground; the JAX MPC env's vmapped per-env step "
-          "(vision4leg_tpu/envs/mpc_env.py:328-329) is ROADMAP queue 1 "
-          "item 2")
     clip = np.asarray(cfg.clip_num if cfg.clip_num is not None
                       else (0.3, 0.4), np.float32)
     self._act_low = torch.tensor(-clip, device=self.device)
@@ -146,17 +144,23 @@ class A1MPCGymEnv(A1GymEnv):
              dyn: a1.DynamicsParams) -> a1.RobotState:
     """Every env dropped in the standing pose at `pos` (E, 3) and settled
     under PD to the standing command for settle_steps * substeps
-    substeps: one launch of the physics window."""
+    substeps: one launch of the physics window on flat ground, the
+    per-env engine with every box unpruned on a heightfield (JAX `reset`,
+    mpc_env.py:124-137)."""
     E = pos.shape[0]
     cmd = self._init_cmd.expand(E, 12).contiguous()
     phys = engine.zero_state(self.model, (E,)).replace(pos=pos,
                                                        joint_q=cmd.clone())
+    n_sub = self.cfg.settle_steps * self.cfg.substeps
+    if not self.kernel_capable:
+      rs, _ = a1.robot_step(self.model, a1.init_robot_state(phys), cmd, dyn,
+                            self._contact_fn(terrain, dyn), n_sub)
+      return a1.init_robot_state(rs.phys)
     boxes = self._pruned_boxes(terrain.boxes, pos[:, :2])
     fb = dyn.lateral_friction
     rs, _ = self._robot_window(
         self.model, a1.init_robot_state(phys), cmd, dyn, boxes,
-        terrain.obstacle_spheres, fb * self.cfg.fric_coeff[0], fb,
-        self.cfg.settle_steps * self.cfg.substeps)
+        terrain.obstacle_spheres, fb * self.cfg.fric_coeff[0], fb, n_sub)
     self.settle_windows += 1
     return a1.init_robot_state(rs.phys)
 
@@ -225,21 +229,28 @@ class A1MPCGymEnv(A1GymEnv):
                              fric_ground, fric_box)
     return pen.movedim(-1, 0)
 
-  def step_inputs(self, states: MpcEnvState, actions):
-    """What an env step holds fixed across its ticks: the clipped actions
-    (E, 2), the commands lin (E, 3) (forward speed clipped at -0.05,
-    :480-484) and ang (E,), the boxes pruned at the step's start, the
-    spheres and the two friction coefficients (E,)."""
+  def _commands(self, actions):
+    """The clipped actions (E, 2) and the commands they give: lin (E, 3)
+    (forward speed clipped at -0.05, :480-484) and ang (E,)."""
     acts = torch.minimum(torch.maximum(actions, self._act_low),
                          self._act_high)
     lin = torch.cat([torch.clamp(acts[:, :1], min=-0.05),
                      torch.zeros_like(acts)], dim=-1)
+    return acts, lin, acts[:, 1]
+
+  def _window_world(self, states: MpcEnvState):
+    """The world a flat step's windows see: the boxes pruned at the
+    step's start, the spheres and the two friction coefficients (E,)."""
     pos_xy = states.robot.phys.pos[:, :2]
     fric_box = states.dyn.lateral_friction
-    return (acts, lin, acts[:, 1],
-            self._pruned_boxes(states.terrain.boxes, pos_xy),
+    return (self._pruned_boxes(states.terrain.boxes, pos_xy),
             states.terrain.obstacle_spheres,
             fric_box * self.cfg.fric_coeff[0], fric_box)
+
+  def step_inputs(self, states: MpcEnvState, actions):
+    """What a flat env step holds fixed across its ticks: `_commands`,
+    then `_window_world`."""
+    return (*self._commands(actions), *self._window_world(states))
 
   def controller_tick(self, cs: ctrl.ControllerState, rs: a1.RobotState,
                       pen, t, lin, ang):
@@ -266,18 +277,18 @@ class A1MPCGymEnv(A1GymEnv):
     return cs, swing_q, stance_tau, stance_mask
 
   def step_batch(self, states: MpcEnvState, actions, gen: torch.Generator):
-    """Step every env: one exact KKT inverse, the start-of-step contact
-    read, then policy_freq ticks of gait -> estimator -> swing -> warm
-    stance -> one hybrid window launch over all envs; then task, done,
+    """Step every env: one exact KKT inverse, then policy_freq ticks of
+    contact read -> gait -> estimator -> swing -> warm stance -> the
+    action-repeat substeps (one hybrid window launch over all envs on
+    flat ground, the per-env engine on a heightfield); then task, done,
     the NaN kill-switch, the camera and the observation.  Returns
     (states, obs (E, D), reward (E,), done (E,) bool, info)."""
     cfg = self.cfg
     E = actions.shape[0]
-    acts, lin, ang, boxes, spheres, fric_ground, fric_box = \
-        self.step_inputs(states, actions)
+    acts, lin, ang = self._commands(actions)
     states = states.replace(last_action=acts,
                             last_base_pos=states.robot.phys.pos)
-    rs, dyn = states.robot, states.dyn
+    rs = states.robot
 
     # one exact KKT inverse per env step from the step-start pose; the
     # ticks' Newton-Schulz steps track the drift within the step
@@ -288,20 +299,8 @@ class A1MPCGymEnv(A1GymEnv):
                                   yawless(rpy0), feet0)
     cs = states.controller
     cs = cs.replace(qp_warm=cs.qp_warm.replace(kinv=kinv))
-
-    # start-of-step contact read (the first tick's gait input; later
-    # ticks take the window's post-state penetration, which is the next
-    # tick's start-of-tick world)
-    pen = self._contact_pen(rs, boxes, spheres, fric_ground, fric_box)
-    t = states.current_time
-    n_sub = cfg.num_action_repeat * cfg.substeps
-    for _ in range(cfg.policy_freq):
-      cs, swing_q, stance_tau, stance_mask = self.controller_tick(
-          cs, rs, pen, t, lin, ang)
-      rs, pen = self._robot_window(
-          self.model, rs, swing_q, dyn, boxes, spheres, fric_ground,
-          fric_box, n_sub, False, stance_tau, stance_mask)
-      t = t + cfg.num_action_repeat * cfg.time_step_s
+    ticks = self._window_ticks if self.kernel_capable else self._engine_ticks
+    rs, cs, t, pen = ticks(states, cs, lin, ang)
     states = states.replace(robot=rs, controller=cs, current_time=t)
 
     task_state = tasks.update(states.task, rs.phys.pos)
@@ -333,6 +332,50 @@ class A1MPCGymEnv(A1GymEnv):
     obs = self._observation(states)
     obs = torch.where(torch.isfinite(obs), obs, 0.0)
     return states, obs, rew, is_done, {}
+
+  def _window_ticks(self, states: MpcEnvState, cs, lin, ang):
+    """The ticks of a flat step (JAX `step_batch`, mpc_env.py:340-419):
+    one hybrid window launch each, boxes pruned at the step's start.  The
+    first tick's contacts are read from the step's start; later ticks
+    take the window's post-state penetration, which is the next tick's
+    start-of-tick world.  Returns (robot state, controller, clock (E,),
+    the post-step penetration (E, P, 2))."""
+    cfg = self.cfg
+    rs, dyn = states.robot, states.dyn
+    boxes, spheres, fric_ground, fric_box = self._window_world(states)
+    pen = self._contact_pen(rs, boxes, spheres, fric_ground, fric_box)
+    t = states.current_time
+    n_sub = cfg.num_action_repeat * cfg.substeps
+    for _ in range(cfg.policy_freq):
+      cs, swing_q, stance_tau, stance_mask = self.controller_tick(
+          cs, rs, pen, t, lin, ang)
+      rs, pen = self._robot_window(
+          self.model, rs, swing_q, dyn, boxes, spheres, fric_ground,
+          fric_box, n_sub, False, stance_tau, stance_mask)
+      t = t + cfg.num_action_repeat * cfg.time_step_s
+    return rs, cs, t, pen
+
+  def _engine_ticks(self, states: MpcEnvState, cs, lin, ang):
+    """The ticks of a heightfield step (JAX `step` and `_controller_tick`,
+    mpc_env.py:185-261), batched over the envs: each tick reads the toes'
+    contacts of the state it starts from, runs the controller stack, then
+    num_action_repeat * substeps substeps of the per-env engine under the
+    hybrid torque; one contact function, boxes pruned at the step's start
+    base xy, serves every read and substep.  Returns what `_window_ticks`
+    does."""
+    cfg = self.cfg
+    rs, dyn = states.robot, states.dyn
+    cfn = self._contact_fn(states.terrain, dyn, rs.phys.pos[:, :2])
+    model_d = a1.apply_dynamics(self.model, dyn)
+    t = states.current_time
+    for _ in range(cfg.policy_freq):
+      cs, swing_q, stance_tau, stance_mask = self.controller_tick(
+          cs, rs, self._engine_pen(rs, cfn), t, lin, ang)
+      for _ in range(cfg.num_action_repeat * cfg.substeps):
+        rs, _ = a1.substep(model_d, rs, swing_q, dyn, cfn, stance_tau,
+                           stance_mask)
+      t = t + cfg.num_action_repeat * cfg.time_step_s
+    return rs, cs, t, self._engine_pen(rs, cfn)
 
   def _task_cfg(self) -> tasks.TaskConfig:
     cfg = self.cfg

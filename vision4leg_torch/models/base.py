@@ -193,8 +193,9 @@ class TransformerEncoderLayer(nn.Module):
       if self.n_head != 1 or x.dtype != torch.float32:
         raise NotImplementedError(
             f"fused transformer layer: one head and float32 only, got "
-            f"{self.n_head} heads and {x.dtype} (bf16 collection: ROADMAP "
-            "queue 1 item 3)")
+            f"{self.n_head} heads and {x.dtype} (bf16 collection builds "
+            "its forward with the fused layer off, as the JAX layer routes "
+            "a non-float32 input, vision4leg_tpu/models/base.py:233-238)")
       return attention.fused_transformer_layer_ad(
           x, attention.weights_from_layer(self))
     B, T, D = x.shape

@@ -101,11 +101,18 @@ def motor_torques(q, qd, commands, dyn: DynamicsParams) -> torch.Tensor:
 
 
 def substep(model: Model, rs: RobotState, command, dyn: DynamicsParams,
-            contact_fn) -> Tuple[RobotState, torch.Tensor]:
+            contact_fn, tau_ff=None, tau_mask=None
+            ) -> Tuple[RobotState, torch.Tensor]:
   """ApplyAction + stepSimulation + ReceiveObservation (minitaur.py:
   255-274) with the per-env engine.  `model` already carries dyn
-  (apply_dynamics).  Returns (new state, penetration (..., P, 2))."""
+  (apply_dynamics).  With tau_ff and tau_mask (..., 12) the torque is the
+  MPC env's hybrid one (JAX mpc_env.py:218-227): the masked (stance)
+  joints apply tau_ff, the others track `command` under PD, as the
+  physics window's hybrid mode does.  Returns (new state, penetration
+  (..., P, 2))."""
   tau = motor_torques(rs.phys.joint_q, rs.phys.joint_qd, command, dyn)
+  if tau_ff is not None:
+    tau = (1.0 - tau_mask) * tau + tau_mask * tau_ff
   phys, penetration, _ = engine.step(model, rs.phys, tau, contact_fn)
   hist = torch.cat([true_record(phys)[..., None, :], rs.obs_hist[..., :-1, :]],
                    dim=-2)

@@ -3,6 +3,7 @@ starter/common.py): parse args + JSON config, build env / network /
 collector / PPO, call train().  Runs on the card."""
 from __future__ import annotations
 
+import copy
 import os
 import os.path as osp
 import random
@@ -86,13 +87,29 @@ def nature_kwargs(env, params: dict) -> dict:
       **params.get("policy", {}))
 
 
-def run_experiment(build_module):
-  """build_module(env, params) -> uninitialized torch actor-critic."""
+def eval_env_of(params: dict, eval_params_transform, device=None):
+  """(eval env, its horizon) built on `device` from the transformed copy
+  of params["env"] (starter/common.py:54-59), or (None, None) without a
+  transform."""
+  if eval_params_transform is None:
+    return None, None
+  eval_env_params = eval_params_transform(copy.deepcopy(params["env"]))
+  eval_env, eval_meta = get_env(params["env_name"], eval_env_params,
+                                device=device)
+  return eval_env, eval_meta["horizon"]
+
+
+def run_experiment(build_module, eval_params_transform=None):
+  """build_module(env, params) -> uninitialized torch actor-critic.
+
+  eval_params_transform(env_params) -> env_params: when given, evaluation
+  runs on a separate env built from the transformed copy of
+  params["env"] (sim-to-sim transfer, reference
+  ppo_nature_cnn_sim2sim.py:43-60), with the training env's obs
+  normalizer, as in the reference.  V4L_BF16_COLLECT=1 runs the
+  collection forward in bfloat16 (the PPO update stays float32)."""
   args = get_args()
   params = get_params(args.config)
-  if _flag("V4L_BF16_COLLECT"):
-    raise NotImplementedError("V4L_BF16_COLLECT: bf16 collection is not "
-                              "ported (ROADMAP queue 1 item 3, left out)")
   if torch.cuda.device_count() > 1 and os.environ.get("V4L_MESH",
                                                       "1") != "0":
     raise NotImplementedError(
@@ -101,6 +118,7 @@ def run_experiment(build_module):
         "train on one card")
 
   env, meta = get_env(params["env_name"], params["env"])
+  eval_env, eval_horizon = eval_env_of(params, eval_params_transform)
   num_envs = args.num_envs or max(args.vec_env_nums, 1)
 
   random.seed(args.seed)
@@ -111,6 +129,11 @@ def run_experiment(build_module):
   # --resume wins over --overwrite: never delete the checkpoint to resume
   logger = Logger(experiment_name, params["env_name"], args.seed, params,
                   args.log_dir, args.overwrite and not args.resume)
+
+  inference_dtype = None
+  if _flag("V4L_BF16_COLLECT"):
+    inference_dtype = torch.bfloat16
+    logger.log("bfloat16 collection forward enabled (V4L_BF16_COLLECT)")
 
   gs = params["general_setting"]
   agent = PPOAgent(
@@ -124,6 +147,8 @@ def run_experiment(build_module):
       obs_norm=meta["obs_norm"],
       env_time_limit=meta["horizon"],
       reward_scale=meta["reward_scale"],
+      inference_dtype=inference_dtype,
+      eval_env=eval_env, eval_horizon=eval_horizon,
   )
   agent.train(resume=args.resume)
   return agent
