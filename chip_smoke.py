@@ -179,7 +179,40 @@ Phases, each printed with the seconds since start:
      float32 one on the same observations (`phase_bf16`); then a 16-step
      thin-goal collection with enable_action_filter on (16 window
      launches) and the filtered commands' range;
- 23. one JSON line with every kernel's numbers (launches summed over the
+ 23. the locomotion-controller demo (`vision4leg_torch/starter/
+     locomotion_controller_example.py`'s `run`, robot a1, DEMO_TIME s of
+     its profile: 2,000 ticks at one env, standing then turning left):
+     its first DEMO_HOLD_TICKS ticks in float64 through the kernel held
+     against the same ticks through the window's plain version at 1e-9
+     (`demo_float64_hold`); then the run, counts set to 0 just before:
+     one hybrid launch a tick and one settle launch for the reset; the
+     robot upright by the demo's criterion; sim and wall seconds, the
+     per-tick host ms (KKT inverse, controller, window, contact read,
+     rest; `SpanTimer`) and each segment's tracking line;
+ 24. the cold convex-MPC solve (`convex_mpc.compute_contact_forces`):
+     the warm path within COLD_BAND of it on the JAX test's protocol
+     (tests/test_mpc.py:352-398: one env walking at (0.3, 0), the first 8
+     steps) and in every one of 1024 envs of phase 9's states, where its
+     float32 solve is held against its float64 solve (COLD_F32_TOL) and
+     the gap's distribution printed; its float64 solve of 8 envs on the card
+     against the CPU's at 1e-8 relative; the native core
+     (`mpc/native/convex_mpc.cpp`) built by g++ and held against the
+     float64 cold solve on every robot's standing QP within 3.0 N; the
+     cold and warm solve and the exact KKT inverse timed with CUDA events
+     (`phase_cold_solver`; run right after phase 9);
+ 25. the sphere terrain: a 16-step collection at 1024 envs of thin-goal
+     with terrain_type random_sphere_with_subgoal, the LocoTransformer
+     with the fused layer on (launches exact: the window 16, the layer
+     4 x 16 + 2); then `sphere_terrain_case` (its states' spheres pruned
+     as step_batch prunes them, one sphere against a toe in every fourth
+     env) by `compare_with_plain`, two calls with the same bits, timed as
+     phase 3 (`phase_spheres`);
+ 26. random_dir (interval 5) and rotate_sensor with the displacement
+     sensor on, on a 16-step thin-goal collection at 1024 envs: the
+     window 16 launches, the observation width the JAX formula's, every
+     direction redrawn exactly on the counts the interval divides
+     (`DirWatch`);
+ 27. one JSON line with every kernel's numbers (launches summed over the
      paths, with each path's count and the shapes run), then the last
      line {"ok": true, "device": {...}}.
 
@@ -190,7 +223,8 @@ the non-MPC evals 32 of 999 steps (sim2sim: of 2000) and the MPC evals 4
 rollout, the vision-only baseline's 4 steps, the random-shape MPC
 baseline's 1; the MPC heightfield 2 collection steps and 2 eval steps
 (each step runs 100 substeps of the per-env engine, each reset 400); the
-MPC walk 20 steps at 64 envs.  Widths are the configs' own.
+MPC walk 20 steps at 64 envs; the demo 10 s of its profile's 20 (its
+first two segments).  Widths are the configs' own.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
 below), since outputs are compared; phase 7 turns cuDNN's TF32 on for
@@ -276,13 +310,15 @@ def mpc_window_inputs(env, states, actions):
 
 
 def rollout_window_inputs(env, st, act12):
-  """The window's inputs of one env step of the thin-goal env from states
-  `st` under the 12-joint command act12."""
-  boxes = env._pruned_boxes(st.terrain.boxes, st.robot.phys.pos[:, :2])
+  """The window's inputs of one env step of a flat RL env from states
+  `st` under the 12-joint command act12: the boxes and the spheres
+  pruned at each base, as step_batch hands them to the window."""
+  xy = st.robot.phys.pos[:, :2]
   fb = st.dyn.lateral_friction
-  return (env.model, st.robot, act12, st.dyn, boxes,
-          st.terrain.obstacle_spheres, fb * env.cfg.fric_coeff[0], fb,
-          env.cfg.num_action_repeat)
+  return (env.model, st.robot, act12, st.dyn,
+          env._pruned_boxes(st.terrain.boxes, xy),
+          env._pruned_spheres(st.terrain.obstacle_spheres, xy),
+          fb * env.cfg.fric_coeff[0], fb, env.cfg.num_action_repeat)
 
 
 def sphere_case(dev):
@@ -1215,7 +1251,8 @@ def phase_hybrid(mpc_env, thin_env, card):
 def phase_mpc_collection(card, dev):
   """One thin-goal MPC rollout at NUM_ENVS envs through the collector;
   returns (hybrid launches, env-steps/s, settle launches, the policy, the
-  first 512 envs' observations of its first 4 steps, the config)."""
+  first 512 envs' observations of its first 4 steps, the config, the env
+  and its states after the rollout)."""
   import torch
   from vision4leg_torch.collector import rollout as rollout_lib
   from vision4leg_torch.ops import attention as att
@@ -1258,7 +1295,7 @@ def phase_mpc_collection(card, dev):
   log(f"MPC outputs finite; terminals {int(traj.terminals.sum())}; mean "
       f"reward {float(traj.rewards.mean()):.4f}")
   return (hybrid, rate, settle_launches, net, traj.obs[:4, :512].clone(),
-          params)
+          params, env, cs.env_states)
 
 
 def phase_walk(card, dev):
@@ -1405,21 +1442,24 @@ def phase_moving_window(env, states, card):
 
 
 def phase_collection(label, config, build_module, horizon, card, dev,
-                     check=None, overrides=None):
+                     check=None, overrides=None, setup=None):
   """One `horizon`-step rollout at NUM_ENVS envs of `config` with the
   starter module `build_module` (seeded random weights, no fused layer:
   the collector calls pi_v, or pi then v), launch counts set to 0 just
   before and held after: the window once a step (policy_freq hybrid
   launches on the MPC env, whose partial resets' settles are counted
   apart), the layer never.  `check(env, cs, traj)` runs after;
-  `overrides` changes env_build entries of the config.  Returns the
-  launch counts and the rate."""
+  `overrides` changes env_build entries of the config; `setup(env)` runs
+  on the env before the collector starts.  Returns the launch counts and
+  the rate."""
   import torch
   from vision4leg_torch.collector import rollout as rollout_lib
   from vision4leg_torch.envs.mpc_env import A1MPCGymEnv
   from vision4leg_torch.ops import attention as att
   from vision4leg_torch.ops import physics_kernel as pk
   env, meta, params = build_env(config, dev, overrides)
+  if setup is not None:
+    setup(env)
   mpc = isinstance(env, A1MPCGymEnv)
   net = build_module(env, params)
   net.init_weights(torch.Generator().manual_seed(0))
@@ -1998,6 +2038,493 @@ def check_action_filter(env, cs, traj):
   return {"min": lo, "max": hi}
 
 
+# ---------------------------------------------------------------------------
+# phases 23-26: the locomotion-controller demo, the cold solver and the
+# native core, the sphere terrain, random_dir and rotate_sensor
+# ---------------------------------------------------------------------------
+
+DEMO_TIME = 10.0       # phase 23's profile: 5 s standing, 5 s turning left
+DEMO_HOLD_TICKS = 20   # its ticks held in float64 against the plain window
+DEMO_HOLD_TOL = 1e-9   # the window's float64 rule, on positions and angles
+COLD_BAND = 0.35       # warm vs cold forces (tests/test_mpc.py:398)
+# the float32 cold solve against its float64 solve at 1024 envs: 4.5e-5
+# on 128 envs of these states on the CPU
+COLD_F32_TOL = 1e-2
+COLD_F64_TOL = 1e-8    # card vs CPU float64 cold solve, relative
+COLD_F64_ENVS = 8
+NATIVE_TOL = 3.0       # N, native core vs cold solve (tests/test_mpc.py:172)
+NATIVE_ITERS = 200     # the cold solve's budget on the standing cases
+MPC_WEIGHTS = (5, 5, 0.2, 0, 0, 10, 0., 0., 1., 1., 1., 0., 0)
+SPHERE_OVERRIDES = {"terrain_type": "random_sphere_with_subgoal"}
+RANDOM_DIR_OVERRIDES = {"random_dir": True, "dir_update_interval": 5,
+                        "rotate_sensor": True, "no_displacement": False}
+
+
+class SpanTimer:
+  """Host-clock seconds of every call of the methods `names` of `obj`,
+  each call between synchronizes (`times`: a list by name)."""
+
+  def __init__(self, obj, names):
+    self.obj, self.names = obj, tuple(names)
+    self.times = {name: [] for name in self.names}
+    for name in self.names:
+      setattr(obj, name, self._wrap(name, getattr(obj, name)))
+
+  def _wrap(self, name, fn):
+    import torch
+
+    def run(*a, **kw):
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      out = fn(*a, **kw)
+      torch.cuda.synchronize()
+      self.times[name].append(time.perf_counter() - t)
+      return out
+    return run
+
+  def close(self):
+    for name in self.names:
+      delattr(self.obj, name)
+
+
+def demo_float64_hold(env, ticks):
+  """The demo's first `ticks` ticks from its reset, in float64 on the
+  card (the env's model, QP scaling and state cast up): once through the
+  kernel (row 1h's float64 instantiation), once with the window's plain
+  version in its place.  Returns the largest difference of each output
+  and the base's largest move over the ticks; the launch count is left as
+  it was."""
+  import copy
+  import torch
+  from vision4leg_torch.mpc import convex_mpc
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import locomotion_controller_example as demo
+  before = pk.robot_window.launches
+  state, _ = env.reset(1, torch.Generator(device=env.device).manual_seed(0))
+  env64 = copy.copy(env)
+  env64.model = pk._double(env.model)
+  env64.mpc_canon = convex_mpc.canonical_constants(env.mpc_cfg).to(
+      env.device, torch.float64)
+  s64 = pk._double(state)
+  kern = demo.run("a1", env=env64, state=s64, ticks=ticks)
+  window = pk.robot_window
+  pk.robot_window = pk.window_plain
+  try:
+    plain = demo.run("a1", env=env64, state=s64, ticks=ticks)
+  finally:
+    pk.robot_window = window
+  pk.robot_window.launches = before
+  diff = {k: float(abs(kern[k] - plain[k]).max())
+          for k in ("pos", "rpy", "vel_body")}
+  for k in ("joint_q", "joint_qd", "quat"):
+    diff[k] = float((getattr(kern["state"].robot.phys, k)
+                     - getattr(plain["state"].robot.phys, k)).abs().max())
+  moved = float(abs(plain["pos"] - plain["pos"][:1]).max())
+  return diff, moved
+
+
+def phase_demo(card, dev):
+  """The locomotion-controller demo on row 1h (`demo.run`, one env,
+  DEMO_TIME s: 2,000 ticks of one hybrid window launch each after the
+  reset's one settle launch), its first DEMO_HOLD_TICKS ticks held in
+  float64 against the plain window; the robot upright by the demo's own
+  criterion; the per-tick host split on the host clock (`SpanTimer`)."""
+  import torch
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import locomotion_controller_example as demo
+  env = demo.build_env("a1", dev)
+  t = time.perf_counter()
+  diff, moved = demo_float64_hold(env, DEMO_HOLD_TICKS)
+  log(f"[demo] first {DEMO_HOLD_TICKS} ticks in float64, kernel vs plain "
+      f"window on the card: max abs diff {diff} (tolerance "
+      f"{DEMO_HOLD_TOL}); the base moved {moved:.3e} m; "
+      f"{time.perf_counter() - t:.2f}s")
+  if not max(diff[k] for k in ("pos", "rpy", "joint_q", "quat")) \
+      <= DEMO_HOLD_TOL or not max(diff.values()) <= 100 * DEMO_HOLD_TOL:
+    raise AssertionError(f"[demo] float64 ticks part from the plain "
+                         f"window: {diff}")
+  split = SpanTimer(env, ("reset", "_refresh_kkt", "controller_tick",
+                          "_robot_window", "_contact_pen"))
+  settles = env.settle_windows
+  pk.robot_window.launches = 0
+  try:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    traj = demo.run("a1", DEMO_TIME, env=env)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+  finally:
+    split.close()
+  ticks = len(traj["t"])
+  settle = env.settle_windows - settles
+  hybrid = pk.robot_window.launches - settle
+  sim = float(traj["t"][-1])
+  # the reset's settle is the first _robot_window call, inside the reset
+  settle_s = split.times["_robot_window"].pop(0)
+  reset_s = sum(split.times.pop("reset"))
+  per_tick = {k: sum(v) / ticks * 1e3 for k, v in split.times.items()}
+  per_tick["rest"] = (wall - reset_s) / ticks * 1e3 - sum(per_tick.values())
+  if any(len(v) != ticks for v in split.times.values()):
+    raise AssertionError(f"[demo] span calls "
+                         f"{ {k: len(v) for k, v in split.times.items()} }")
+  lines = demo.segment_lines(traj)
+  ok = demo.upright(traj)
+  log(f"[demo] robot=a1 sim {sim:.3f}s in {wall:.3f}s wall on {card} "
+      f"({sim / wall:.3f}x realtime, each span between synchronizes); "
+      f"upright={ok}; {ticks} ticks; physics_window launches "
+      f"{pk.robot_window.launches}: {hybrid} hybrid + {settle} settle; "
+      f"reset {reset_s * 1e3:.1f} ms (its settle {settle_s * 1e3:.1f}); "
+      f"per-tick host ms: KKT inverse {per_tick['_refresh_kkt']:.3f}, "
+      f"controller {per_tick['controller_tick']:.3f}, window "
+      f"{per_tick['_robot_window']:.3f}, contact read "
+      f"{per_tick['_contact_pen']:.3f}, rest {per_tick['rest']:.3f}")
+  for line in lines:
+    log(f"[demo] {line.strip()}")
+  want = int(DEMO_TIME / (env.cfg.num_action_repeat * env.cfg.time_step_s))
+  if not ok or ticks != want or hybrid != ticks or settle != 1:
+    raise AssertionError(f"[demo] upright={ok}, ticks {ticks}, launches "
+                         f"{hybrid} hybrid + {settle} settle")
+  return dict(physics_window=hybrid, physics_window_settle=settle), dict(
+      sim_s=sim, wall_s=wall, ticks=ticks, per_tick_host_ms=per_tick,
+      reset_ms=reset_s * 1e3, settle_ms=settle_s * 1e3,
+      segments=demo.segment_report(traj), float64_hold=diff)
+
+
+def mpc_stance_args(env, states):
+  """The stance QP's state arguments of every env of MPC `states` under
+  the commands of their last actions, as the next controller tick of an
+  env step that kept the command would pose them (the warm iterates
+  carry that command's solve): (args, the yawless rpy, the feet)."""
+  from vision4leg_torch.mpc import controllers as ctrl
+  from vision4leg_torch.mpc import leg_kinematics as lk
+  from vision4leg_torch.physics import maths
+  _, lin, ang = env._commands(states.last_action)
+  rs = states.robot
+  rpy = maths.quat_to_rpy(rs.phys.quat)
+  rate = maths.quat_rotate_inv(rs.phys.quat, rs.phys.ang)
+  feet = lk.foot_positions_base_frame(rs.phys.joint_q)
+  contact, head, tail = ctrl._stance_inputs(states.controller, rpy, lin, ang,
+                                            0.45)
+  return (*head, rate, contact, feet, *tail), head[2], feet
+
+
+def warm_vs_cold(env, states):
+  """Per env of MPC `states`: the largest |f_warm - f_cold| over
+  max(|f_cold|, 1) at the next tick (`mpc_stance_args`; the warm path from
+  the carried iterates and a fresh KKT inverse, as an env step starts),
+  and the stance arguments, the yawless rpy and the feet."""
+  from vision4leg_torch.mpc import convex_mpc as cm
+  cfg, canon = env.mpc_cfg, env.mpc_canon
+  args, yawless, feet = mpc_stance_args(env, states)
+  f_cold = cm.compute_contact_forces(cfg, *args)
+  kinv = cm.kkt_inverse(cfg, canon, yawless, feet)
+  f_warm, _ = cm.compute_contact_forces_warm(
+      cfg, canon, states.controller.qp_warm.replace(kinv=kinv), *args,
+      warm_iters=cfg.warm_iters, ns_iters=cfg.ns_iters)
+  scale = f_cold.abs().amax(dim=(1, 2)).clamp(min=1.0)
+  return ((f_cold - f_warm).abs().amax(dim=(1, 2)) / scale, f_cold, args,
+          yawless, feet)
+
+
+def phase_cold_solver(card, env, states):
+  """The cold solve (`convex_mpc.compute_contact_forces`) on the card:
+  * the JAX test's band (tests/test_mpc.py:352-398): the warm forces
+    within COLD_BAND of the cold ones at the start of each of the first 8
+    steps of one env walking at (0.3, 0) on plane (policy_freq 20, settle
+    100, as that test);
+  * at NUM_ENVS envs of phase 9's states: the float32 cold solve against
+    its float64 solve within COLD_F32_TOL; the warm-vs-cold gap within
+    COLD_BAND in every env, with its distribution (the band is the
+    reference's property, not a bound: both solvers stop far from
+    convergence, and on other states, such as uniform random commands,
+    its tail can pass 0.35 in the reference's algorithm too); cold
+    solve, warm solve and exact KKT inverse timed with CUDA events;
+  * the card's float64 cold solve of COLD_F64_ENVS envs against the
+    CPU's within COLD_F64_TOL;
+  * the native core built with g++ and held against the float64 cold
+    solve on every robot's standing QP within NATIVE_TOL."""
+  import torch
+  from vision4leg_torch.envs.mpc_env import A1MPCGymEnv, MpcEnvConfig
+  from vision4leg_torch.mpc import convex_mpc as cm
+  from vision4leg_torch.mpc import robot_params
+  from vision4leg_torch.mpc.native import mpc_osqp
+  from vision4leg_torch.robots import a1_params as P
+  dev = env.device
+  walk = A1MPCGymEnv(MpcEnvConfig(
+      motor_control_mode="POSITION", clip_num=(0.3, 0.4), time_step_s=0.001,
+      num_action_repeat=5, policy_freq=20, terrain_type="plane",
+      target_vel=0.3, check_contact=False, settle_steps=100,
+      alive_reward=0.1), device=dev)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  wstate, _ = walk.reset(1, gen)
+  act = torch.tensor([[0.3, 0.0]], device=dev)
+  walk_err = []
+  for _ in range(8):
+    wstate = wstate.replace(last_action=act)
+    walk_err.append(float(warm_vs_cold(walk, wstate)[0].max()))
+    wstate, _, _, done, _ = walk.step_batch(wstate, act, gen)
+    if bool(done.any()):
+      raise AssertionError("[cold solver] the walking env fell")
+  log(f"[cold solver] the JAX test's protocol (one env walking at (0.3, 0), "
+      f"8 steps): warm vs cold max relative err by step "
+      f"{[round(e, 4) for e in walk_err]} (band {COLD_BAND})")
+  if not max(walk_err) < COLD_BAND:
+    raise AssertionError(f"[cold solver] warm path off the cold solve by "
+                         f"{max(walk_err)} on the walk")
+  del walk, wstate
+
+  cfg, canon = env.mpc_cfg, env.mpc_canon
+  err, f_cold, args, yawless, feet = warm_vs_cold(env, states)
+  a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+  f64 = cm.compute_contact_forces(cfg, *a64)
+  f32_err = float(((f_cold.double() - f64).abs().amax(dim=(1, 2))
+                   / f64.abs().amax(dim=(1, 2)).clamp(min=1.0)).max())
+  warm = states.controller.qp_warm
+  kinv = cm.kkt_inverse(cfg, canon, yawless, feet)
+  cold_ms = time_ms(lambda: cm.compute_contact_forces(cfg, *args), n=10)
+  warm_ms = time_ms(lambda: cm.compute_contact_forces_warm(
+      cfg, canon, warm.replace(kinv=kinv), *args,
+      warm_iters=cfg.warm_iters, ns_iters=cfg.ns_iters), n=10)
+  kkt_ms = time_ms(lambda: cm.kkt_inverse(cfg, canon, yawless, feet), n=10)
+  q = torch.quantile(err.double(), torch.tensor([0.5, 0.99], device=dev,
+                                                dtype=torch.float64))
+  beyond = int((err >= COLD_BAND).sum())
+  log(f"[cold solver] {NUM_ENVS} envs of the MPC collection's states: "
+      f"float32 vs float64 cold solve max relative err {f32_err:.3e} "
+      f"(tolerance {COLD_F32_TOL}); warm vs cold relative err median "
+      f"{float(q[0]):.4f}, 99th percentile {float(q[1]):.4f}, max "
+      f"{float(err.max()):.4f}, {beyond} envs at or past {COLD_BAND}; "
+      f"total fz cold {float(-f_cold[..., 2].sum(-1).mean()):.2f} N mean; "
+      f"on {card}: cold solve {cold_ms:.3f} ms, warm solve {warm_ms:.3f} "
+      f"ms, exact KKT inverse {kkt_ms:.3f} ms (CUDA events, 10 calls)")
+  if not bool(torch.isfinite(f_cold).all()) or not f32_err < COLD_F32_TOL:
+    raise AssertionError(f"[cold solver] float32 cold solve off its "
+                         f"float64 solve by {f32_err}")
+  if beyond:
+    raise AssertionError(f"[cold solver] warm path off the cold solve by "
+                         f"{float(err.max())} in {beyond} envs")
+
+  def to64(a):
+    """An argument of the first COLD_F64_ENVS envs, floats in float64
+    (the desired position and rpy are shared (3,) vectors)."""
+    a = a if a.dim() == 1 else a[:COLD_F64_ENVS]
+    return a.double() if a.is_floating_point() else a
+  a64 = tuple(to64(a) for a in args)
+  f_gpu = cm.compute_contact_forces(cfg, *a64)
+  f_cpu = cm.compute_contact_forces(cfg, *(a.cpu() for a in a64))
+  rel64 = float((f_gpu.cpu() - f_cpu).abs().max() / f_cpu.abs().max())
+  log(f"[cold solver] float64 cold solve of {COLD_F64_ENVS} envs: card vs "
+      f"CPU max relative err {rel64:.3e} (tolerance {COLD_F64_TOL})")
+  if not rel64 < COLD_F64_TOL:
+    raise AssertionError(f"[cold solver] float64 card vs CPU {rel64}")
+  t = time.perf_counter()
+  path = mpc_osqp.build()
+  build_s = time.perf_counter() - t
+  sets = {"a1 (RL-MPC SRB)": (float(P.MPC_BODY_MASS),
+                              tuple(float(x) for x in P.MPC_BODY_INERTIA),
+                              0.24, robot_params.A1.hip_positions)}
+  sets.update({name: (rp.body_mass, tuple(rp.body_inertia), rp.body_height,
+                      rp.hip_positions)
+               for name, rp in robot_params.ROBOTS.items()})
+  native_err = {}
+  for name, (mass, inertia, h, hips) in sets.items():
+    feet_np = [[x, y, -h] for x, y, _ in hips]
+    core = mpc_osqp.ConvexMpc(mass, list(inertia), 4, 10, 0.025,
+                              list(MPC_WEIGHTS), 1e-5)
+    f_nat = torch.tensor(core.compute_contact_forces(
+        [0.0, 0.0, h], [0.0] * 3, [0.0] * 3, [0.0] * 3, [1] * 4,
+        sum(feet_np, []), [0.45] * 4, [0.0, 0.0, h], [0.0] * 3, [0.0] * 3,
+        [0.0] * 3)[:12], dtype=torch.float64).reshape(4, 3)
+    c64 = cm.MpcConfig(mass=mass, inertia=inertia, qp_weights=MPC_WEIGHTS,
+                       admm_iters=NATIVE_ITERS)
+    z = torch.tensor([[0.0, 0.0, h]], dtype=torch.float64, device=dev)
+    zero = torch.zeros(1, 3, dtype=torch.float64, device=dev)
+    f_t = cm.compute_contact_forces(
+        c64, z, zero, zero, zero,
+        torch.ones(1, 4, dtype=torch.int32, device=dev),
+        torch.tensor(feet_np, dtype=torch.float64, device=dev)[None],
+        torch.full((1, 4), 0.45, dtype=torch.float64, device=dev), z[0],
+        zero[0], zero[0], zero[0])[0].cpu()
+    native_err[name] = float((f_nat - f_t).abs().max())
+  log(f"[cold solver] native core built by g++ in {build_s:.2f}s "
+      f"({os.path.relpath(path)}); standing QPs, native vs float64 cold "
+      f"solve ({NATIVE_ITERS} iterations) on the card: max abs diff N "
+      f"{native_err} (tolerance {NATIVE_TOL})")
+  if not max(native_err.values()) <= NATIVE_TOL:
+    raise AssertionError(f"[cold solver] native core off: {native_err}")
+  return dict(walk_warm_vs_cold_max_rel=walk_err,
+              warm_vs_cold_rel=dict(median=float(q[0]), p99=float(q[1]),
+                                    max=float(err.max()), beyond=beyond),
+              float32_vs_float64=f32_err, cold_ms=cold_ms,
+              warm_ms=warm_ms, kkt_inverse_ms=kkt_ms,
+              float64_card_vs_cpu=rel64, native_build_s=build_s,
+              native_vs_cold_n=native_err)
+
+
+def sphere_terrain_case(env, states, seed=29):
+  """The window's inputs of one step of the sphere env from `states`
+  under random actions: the generator's spheres pruned at each base (as
+  step_batch hands them to the window); in every INTO_CONTACT_EVERY-th
+  env the nearest sphere moved against a random toe, resting on the
+  ground with the toe 1 cm inside it.  Returns (args, those envs)."""
+  import torch
+  from vision4leg_torch.physics import engine
+  dev = env.device
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  E = states.step_counter.shape[0]
+  low, high = env.action_low, env.action_high
+  act12 = env._expand_action(low + (high - low) * torch.rand(
+      E, low.shape[0], generator=gen, device=dev))
+  args = list(rollout_window_inputs(env, states, act12))
+  spheres = args[5].clone()
+  rs = states.robot
+  toes, _, _ = engine.contact_points_world(
+      env.model, rs.phys, engine.fwd_kinematics(env.model, rs.phys))
+  rows = torch.arange(0, E, INTO_CONTACT_EVERY, device=dev)
+  toe = toes[rows, torch.randint(4, (rows.numel(),), generator=gen,
+                                 device=dev)]
+  r = spheres[rows, 0, 3]
+  reach = r + env.model.cp_radius[0] - 0.01
+  dz = r - toe[:, 2]
+  h = torch.sqrt(torch.clamp(reach * reach - dz * dz, min=0.0))
+  phi = 2 * math.pi * torch.rand(rows.numel(), generator=gen, device=dev)
+  spheres[rows, 0, 0] = toe[:, 0] + h * torch.cos(phi)
+  spheres[rows, 0, 1] = toe[:, 1] + h * torch.sin(phi)
+  spheres[rows, 0, 2] = r
+  spheres[rows, 0, 4] = 1.0
+  args[5] = spheres
+  return tuple(args), rows
+
+
+def phase_spheres(card, dev):
+  """random_sphere_with_subgoal on the window: a 16-step thin-goal
+  collection at NUM_ENVS envs with the LocoTransformer, fused layer on
+  (a PPOAgent's rollout; launches held exactly: row 1 once a step, row 2
+  as phase 22's float32 collection); then `sphere_terrain_case` of its
+  last states against the plain version (`compare_with_plain`), two calls
+  with the same bits, timed as phase 3."""
+  import torch
+  from vision4leg_torch.algo.agent import PPOAgent
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter import ppo_locotransformer as starter
+  env, meta, params = build_env(CONFIG, dev, SPHERE_OVERRIDES)
+  cfg = common.ppo_config(params)
+  horizon = cfg.epoch_frames // NUM_ENVS
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    agent = PPOAgent(
+        env=env, ac_module=starter.build_module(env, params), cfg=cfg,
+        num_envs=NUM_ENVS, seed=0, logger=None, save_dir=tmp,
+        obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"],
+        reward_scale=meta["reward_scale"], fused_attention=True,
+        fused_update=True, device=dev)
+    pk.robot_window.launches = 0
+    att.fused_transformer_layer.launches = 0
+    att.fused_transformer_layer_bwd.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cs, traj, last_v = agent.rollout(agent.collector_state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+  launches = {"physics_window": pk.robot_window.launches,
+              "transformer_layer": att.fused_transformer_layer.launches}
+  want = {"physics_window": horizon, "transformer_layer": 4 * horizon + 2}
+  depth = traj.obs[..., env.cfg.proprio_dim:].reshape(
+      horizon, NUM_ENVS, 4, 64, 64)
+  log(f"[spheres collection] {horizon} steps x {NUM_ENVS} envs in "
+      f"{dt:.3f}s = {horizon * NUM_ENVS / dt:.1f} env-steps/s on {card}; "
+      f"launches {launches}, expected {want}; terminals "
+      f"{int(traj.terminals.sum())}")
+  if launches != want or att.fused_transformer_layer_bwd.launches:
+    raise AssertionError("[spheres collection] launch counts")
+  for x in (traj.obs, traj.values, traj.log_probs, traj.rewards, last_v):
+    if not torch.isfinite(x).all():
+      raise AssertionError("[spheres collection] non-finite outputs")
+  if not bool((depth.amax((-1, -2)) - depth.amin((-1, -2)) > 0.1).all()):
+    raise AssertionError("[spheres collection] constant depth frames")
+  states = cs.env_states
+  args, rows = sphere_terrain_case(env, states)
+  counts = {}
+  pk.window_plain(*args, counts=counts)
+  ok, rep = pk.compare_with_plain(args)
+  torch.cuda.synchronize()
+  log_window_report(f"spheres, {rows.numel()} envs with a sphere against "
+                    "a toe", args, rep, counts)
+  if not ok:
+    raise AssertionError("physics_window disagrees with plain on the "
+                         "sphere case")
+  if not int(counts.get("sphere_contacts", torch.zeros(1)).sum()) > 0:
+    raise AssertionError("the sphere case made no sphere contact")
+  check_repeatable("spheres", args)
+  numbers, ms = time_window("spheres", args, card, counts)
+  return (dict(launches, seconds=dt,
+               env_steps_per_s=horizon * NUM_ENVS / dt),
+          dict(max_abs_err=rep["max_abs_err"], **numbers), ms,
+          rep["max_abs_err"])
+
+
+class DirWatch:
+  """Records each RL step's RandoDir angle and count before and after
+  `step_batch` (installed on the env by `setup`), and checks them."""
+
+  def setup(self, env):
+    self.env, self.records = env, []
+    step = env.step_batch
+
+    def watched(states, actions, gen):
+      before = (states.dir_angle.clone(), states.dir_count.clone())
+      out = step(states, actions, gen)
+      self.records.append(before + (out[0].dir_angle.clone(),
+                                    out[0].dir_count.clone()))
+      return out
+    env.step_batch = watched
+
+  def check(self, env, cs, traj):
+    """The observation width is the JAX formula's; every step counts one
+    observation and redraws the direction exactly on the counts the
+    interval divides (a redrawn angle is a new draw: equal with
+    probability 0); the (cos, sin) prefix is unit."""
+    import torch
+    del env.step_batch
+    cfg = env.cfg
+    want = 2 + 12 + 36 + 3 * 7 + (36 if cfg.add_last_action_input else 0) \
+        + (6 if cfg.goal else 0) + cfg.image_dim
+    if env.obs_dim != want or traj.obs.shape[-1] != want:
+      raise AssertionError(f"[random_dir] obs width {env.obs_dim}, JAX "
+                           f"formula {want}")
+    redraws = 0
+    for a0, c0, a1, c1 in self.records:
+      if not torch.equal(c1, c0 + 1):
+        raise AssertionError("[random_dir] the count did not step by one")
+      due = (c1 % cfg.dir_update_interval) == 0
+      if not torch.equal(a1 != a0, due):
+        raise AssertionError("[random_dir] a direction redrew off its "
+                             "schedule")
+      redraws += int(due.sum())
+    steps = len(self.records)
+    log(f"[random_dir] obs width {want} (the JAX formula: 2 + 3 x 7 "
+        f"displacement and rotation + 12 + 36 + 36 + the frames); "
+        f"{steps} steps, {redraws} redraws, each on a count divisible by "
+        f"{cfg.dir_update_interval}; final states' disp_hist "
+        f"{tuple(cs.env_states.disp_hist.shape)}")
+    if steps == 0 or redraws == 0:
+      raise AssertionError("[random_dir] no redraw was checked")
+    return dict(obs_width=want, redraws=redraws)
+
+
+def phase_random_dir(horizon, card, dev):
+  """random_dir (interval 5) and rotate_sensor (displacement sensor on)
+  on the thin-goal collection at NUM_ENVS envs: the window once a step,
+  the observation width and the redraw schedule (`DirWatch`)."""
+  from vision4leg_torch.starter import ppo_locotransformer as starter
+  watch = DirWatch()
+  return phase_collection(
+      "random_dir + rotate_sensor", CONFIG, starter.build_module, horizon,
+      card, dev, watch.check, overrides=RANDOM_DIR_OVERRIDES,
+      setup=watch.setup)
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -2176,7 +2703,12 @@ def main() -> int:
 
   # --- 9. MPC collection ----------------------------------------------------
   (mpc_launches, mpc_rate, mpc_settles, mpc_net, mpc_obs,
-   mpc_params) = phase_mpc_collection(card, dev)
+   mpc_params, mpc_env, mpc_states) = phase_mpc_collection(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 24. the cold solver and the native core, on phase 9's states ---------
+  cold = phase_cold_solver(card, mpc_env, mpc_states)
+  del mpc_env, mpc_states
   torch.cuda.empty_cache()
 
   # --- 11. the fused PPO update against the unfused one (B = 512) --------
@@ -2302,7 +2834,22 @@ def main() -> int:
       check_action_filter, overrides={"enable_action_filter": True})
   torch.cuda.empty_cache()
 
-  # --- 23. results ----------------------------------------------------------
+  # --- 23. the locomotion-controller demo on row 1h -------------------------
+  demo_launches, demo = phase_demo(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 25. the sphere terrain on the window ---------------------------------
+  (sphere_launches, sphere_numbers, sphere_ms,
+   sphere_err) = phase_spheres(card, dev)
+  max_err = max(max_err, sphere_err)
+  torch.cuda.empty_cache()
+
+  # --- 26. random_dir and rotate_sensor -------------------------------------
+  collections["random_dir + rotate_sensor collection"] = phase_random_dir(
+      horizon, card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 27. results ----------------------------------------------------------
   # launches: the sum over the paths that run a kernel, each read just
   # after it was driven with the counts at 0 (by path beside it)
   by_path = {k: {n: v[n] for n in ("physics_window", "physics_window_settle",
@@ -2312,6 +2859,9 @@ def main() -> int:
   by_path["MPC collection"] = {"physics_window": mpc_launches,
                                "physics_window_settle": mpc_settles}
   by_path["MPC heightfield collection + eval"] = mpc_hf_launches
+  by_path["MPC demo (locomotion controller, 1 env)"] = demo_launches
+  by_path["spheres collection"] = {
+      n: sphere_launches[n] for n in ("physics_window", "transformer_layer")}
   by_path.update({f"{k} collection": {n: v[n] for n in (
       "physics_window", "transformer_layer")} for k, v in bf16.items()})
   by_path.update({k: {n: v[n] for n in v if n.startswith("physics_window")}
@@ -2334,11 +2884,13 @@ def main() -> int:
       shapes="16 substeps at 1024 envs (thin-goal, moving thin-goal and "
              "thin-wide, interpolation and fixed-delay, stairs and "
              "chair_desk, thin-random-shape, sim2sim, float32 and bf16, "
-             "action-filter collection) and 8 (eval, the sim2sim transfer "
-             "env's among them); the MPC resets' settles of settle_steps "
-             "substeps at 1024 envs, the partial resets' envs and 8 "
-             "(eval); never on a heightfield terrain (mountain, "
-             "thin-heightfield, state-only, MPC heightfield: 0)",
+             "action-filter, sphere-terrain (8 of 50 spheres an env), "
+             "random_dir + rotate_sensor collection) and 8 (eval, the "
+             "sim2sim transfer env's among them); the MPC resets' settles "
+             "of settle_steps substeps at 1024 envs, the partial resets' "
+             "envs, 8 (eval) and 1 (the demo's 300); never on a "
+             "heightfield terrain (mountain, thin-heightfield, state-only, "
+             "MPC heightfield: 0)",
       max_abs_err=max_err, **window), dict(
       name="transformer_layer", route="cuda",
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
@@ -2368,18 +2920,24 @@ def main() -> int:
       launches=sum(row1h_paths.values()), launches_by_path=row1h_paths,
       shapes="5 substeps at 1024 envs (collection: LocoTransformer, "
              "vision-only, the vision-only Nature-CNN baseline and the "
-             "thin-random-shape Nature-CNN baseline) and 8 (eval); never on "
+             "thin-random-shape Nature-CNN baseline), 8 (eval) and 1 (the "
+             "locomotion-controller demo, one launch a tick); never on "
              "the MPC heightfield (0: the per-env engine)",
       **hybrid)]
   print(json.dumps({"kernels": kernels, "card": card,
                     "window_ms": {"rollout": window_ms,
                                   "hybrid": hybrid_ms,
                                   "moving": moving_ms,
-                                  "stairs": stairs_ms},
+                                  "stairs": stairs_ms,
+                                  "spheres": sphere_ms},
                     "moving_window": dict(max_abs_err=moving_err,
                                           **moving_numbers),
                     "stairs_window": dict(max_abs_err=stairs_err,
                                           **stairs_numbers),
+                    "sphere_window": sphere_numbers,
+                    "sphere_collection": sphere_launches,
+                    "locomotion_demo": demo,
+                    "cold_solver": cold,
                     "nonflat_step_ms": nonflat_split,
                     "mpc_heightfield": mpc_hf,
                     "bf16_collection": bf16,

@@ -39,7 +39,6 @@ from vision4leg_torch.algo.ppo import PPOConfig
 from vision4leg_torch.convert import params_from_flax
 from vision4leg_torch.data.normalizer import NormalizerState
 from vision4leg_torch.envs import env as tenv_mod
-from vision4leg_torch.envs import tasks as ttasks
 from vision4leg_torch.envs.get_env import get_env as torch_get_env
 from vision4leg_torch.models.actor_critic import LocoTransformerActorCritic
 
@@ -80,19 +79,7 @@ class TiltEnv(JaxEnv):
 
 def _env_state(js):
   """A torch EnvState from the JAX EnvState (numpy leaves, env axis)."""
-  t = convert.tensor
-  return tenv_mod.EnvState(
-      robot=convert.robot_state(js.robot), dyn=convert.dynamics(js.dyn),
-      terrain=convert.terrain(js.terrain),
-      task=ttasks.TaskState(**{k: t(getattr(js.task, k)) for k in (
-          "last_base_pos", "current_base_pos", "subgoal_trackers",
-          "target_vel_dir")}),
-      motor_hist=t(js.motor_hist), imu_hist=t(js.imu_hist),
-      disp_hist=t(js.disp_hist), last_action_hist=t(js.last_action_hist),
-      last_action=t(js.last_action), last_base_pos=t(js.last_base_pos),
-      filter_state=convert.filter_state(js.filter_state),
-      frames=t(js.frames), frame_idx=t(js.frame_idx),
-      interp_delay=t(js.interp_delay), step_counter=t(js.step_counter))
+  return convert.env_state(js)
 
 
 class ReplayResetEnv(tenv_mod.A1GymEnv):

@@ -180,12 +180,13 @@ def test_render_depth_matches_jax():
 def test_env_rejects_what_it_does_not_run():
   with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
     tenv_mod.A1GymEnv(tenv_mod.EnvConfig(rgbd=True), device="cpu")
-  with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-    tenv_mod.A1GymEnv(
-        tenv_mod.EnvConfig(terrain_type="random_sphere_with_subgoal"),
-        device="cpu")
-  with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-    tenv_mod.A1GymEnv(tenv_mod.EnvConfig(random_dir=True), device="cpu")
+  # the sphere terrain and random_dir are ported: the env builds with them
+  env = tenv_mod.A1GymEnv(
+      tenv_mod.EnvConfig(terrain_type="random_sphere_with_subgoal"),
+      device="cpu")
+  assert env.kernel_capable
+  env = tenv_mod.A1GymEnv(tenv_mod.EnvConfig(random_dir=True), device="cpu")
+  assert env.cfg.proprio_dim == tenv_mod.EnvConfig().proprio_dim + 2
   # the action filter is ported: the env builds with it
   env = tenv_mod.A1GymEnv(tenv_mod.EnvConfig(enable_action_filter=True),
                           device="cpu")

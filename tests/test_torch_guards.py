@@ -38,7 +38,13 @@ for n in ("vision4leg_torch.algo.agent",
           "vision4leg_torch.mpc.leg_kinematics",
           "vision4leg_torch.robots.action_filter",
           "vision4leg_torch.envs.wrappers",
-          "vision4leg_torch.starter.ppo_nature_cnn_sim2sim"):
+          "vision4leg_torch.starter.ppo_nature_cnn_sim2sim",
+          "vision4leg_torch.starter.locomotion_controller_example",
+          "vision4leg_torch.mpc.qp_torque_optimizer",
+          "vision4leg_torch.mpc.robot_params",
+          "vision4leg_torch.mpc.static_gait",
+          "vision4leg_torch.mpc.native.mpc_osqp",
+          "vision4leg_torch.robots.pose_utils"):
   assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -69,6 +75,11 @@ def test_default_device_entry_points_raise_without_a_card():
   with pytest.raises(RuntimeError, match="no CUDA device"):
     get_env("A1MoveGroundMPC", {"env_build": {"policy_freq": 20}})
   assert resolve_device("cpu").type == "cpu"
+  from vision4leg_torch.starter import locomotion_controller_example as demo
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    demo.build_env("a1")
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    demo.main(["--robot", "a1", "--max_time", "0.01"])
   from vision4leg_torch.algo.agent import PPOAgent
   from vision4leg_torch.algo.ppo import PPOConfig
   env, _ = get_env("A1MoveGround", {"env_build": {}}, device="cpu")

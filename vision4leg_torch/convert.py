@@ -12,6 +12,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from vision4leg_torch.envs import env as env_lib
+from vision4leg_torch.envs import tasks
 from vision4leg_torch.envs.terrain import TerrainState
 from vision4leg_torch.physics import engine
 from vision4leg_torch.robots import a1, action_filter
@@ -55,7 +57,7 @@ def filter_state(fs, device="cpu") -> action_filter.FilterState:
 
 def terrain(ts, device="cpu") -> TerrainState:
   """A batch of the JAX package's TerrainState (leading env axis), its
-  heightfield fields included."""
+  heightfield fields and obstacle spheres (E, Q, 5) included."""
   spheres = getattr(ts, "obstacle_spheres", None)
   return TerrainState(
       height=tensor(ts.height, device), hf_cell=tensor(ts.hf_cell, device),
@@ -67,6 +69,31 @@ def terrain(ts, device="cpu") -> TerrainState:
       obstacle_spheres=(tensor(spheres, device) if spheres is not None
                         else torch.zeros(
                             np.shape(ts.boxes)[:-2] + (0, 5), device=device)))
+
+
+def task_state(ts, device="cpu") -> tasks.TaskState:
+  return tasks.TaskState(**{
+      f: tensor(getattr(ts, f), device)
+      for f in ("last_base_pos", "current_base_pos", "subgoal_trackers",
+                "target_vel_dir")})
+
+
+def env_state(es, device="cpu") -> env_lib.EnvState:
+  """A batch of the JAX package's A1GymEnv EnvState (leading env axis):
+  every field but its key, the RandoDir angle and count, the base
+  quaternion of the rotate sensor and the displacement history (3 or 7
+  channels) included."""
+  t = lambda x: tensor(x, device)
+  return env_lib.EnvState(
+      robot=robot_state(es.robot, device), dyn=dynamics(es.dyn, device),
+      terrain=terrain(es.terrain, device), task=task_state(es.task, device),
+      **{f: t(getattr(es, f)) for f in (
+          "motor_hist", "imu_hist", "disp_hist", "last_action_hist",
+          "last_action", "last_base_pos", "last_base_quat", "dir_angle",
+          "dir_count")},
+      filter_state=filter_state(es.filter_state, device),
+      **{f: t(getattr(es, f)) for f in (
+          "frames", "frame_idx", "interp_delay", "step_counter")})
 
 
 # ---------------------------------------------------------------------------

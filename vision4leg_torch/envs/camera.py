@@ -119,12 +119,13 @@ def _ray_boxes_t(eye, dirs, boxes):
   return torch.amin(t, dim=-1)
 
 
-def _ray_spheres_t(eye, dirs, centers, radius: float, active):
-  """Min positive t over S spheres; centers (E, S, 3), active (E, S)."""
+def _ray_spheres_t(eye, dirs, centers, radius, active):
+  """Min positive t over S spheres; centers (E, S, 3), radius a number or
+  (E, S), active (E, S)."""
   oc = eye[..., None, :] - centers
   d2 = torch.sum(dirs * dirs, dim=-1)                   # (E, N)
   b = torch.einsum("eni,esi->ens", dirs, oc)
-  cterm = (torch.sum(oc * oc, dim=-1) - radius ** 2)[..., None, :]
+  cterm = (torch.sum(oc * oc, dim=-1) - radius * radius)[..., None, :]
   disc = b * b - d2[..., None] * cterm
   sq = torch.sqrt(torch.clamp(disc, min=0.0))
   t = (-b - sq) / d2[..., None]
@@ -192,10 +193,15 @@ def render_depth(trunk_pos, trunk_rot, terrain: TerrainState,
       boxes = torch.cat([boxes[..., :7],
                          torch.minimum(boxes[..., 7], v)[..., None]], dim=-1)
     t = torch.minimum(t, _ray_boxes_t(eye, dirs, boxes))
-  if terrain.obstacle_spheres.shape[-2] > 0:
-    raise NotImplementedError("render_depth: obstacle spheres "
-                              "(random_sphere_with_subgoal) are not ported "
-                              "yet (ROADMAP queue 1 item 4)")
+  q = terrain.obstacle_spheres
+  if q.shape[-2] > 0:
+    if q.shape[-2] > MAX_RENDER_SPHERES:
+      q, v = _prune_rows(q, eye, f_axis, r_axis, u_axis, q[..., 0:3],
+                         q[..., 3], q[..., 4], MAX_RENDER_SPHERES)
+      q = torch.cat([q[..., :4], torch.minimum(q[..., 4], v)[..., None]],
+                    dim=-1)
+    t = torch.minimum(t, _ray_spheres_t(eye, dirs, q[..., 0:3], q[..., 3],
+                                        q[..., 4]))
   if show_subgoals:
     sg = terrain.subgoals
     centers = torch.cat([sg, torch.full_like(sg[..., :1], SUBGOAL_RADIUS)],

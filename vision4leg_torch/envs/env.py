@@ -14,8 +14,17 @@ env's vmapped `step` does (env.py:482-500, 594-595).  A non-flat env
 never reaches the window: `_robot_window` raises there.
 
 Observation layout (sorted sensor names, env_utils.py:27-50):
-  [GoalPos(6)?] [HSW(BaseDisplacement)(9)?] [HSW(IMU)(12)]
-  [HSW(LastAction)(36)?] [HSW(MotorAngle)(36)] [raw_img(4*64*64)?]
+  [RandoDir (cos, sin)(2)?] [GoalPos(6)?] [HSW(BaseDisplacement)(9 or 21)?]
+  [HSW(IMU)(12)] [HSW(LastAction)(36)?] [HSW(MotorAngle)(36)]
+  [raw_img(4*64*64)?]
+With `rotate_sensor` each displacement reading is 7 wide: the base
+displacement and the xyzw quaternion delta since the step's start
+(BaseDisplacementAndRotateSensor, robot_sensors.py:283-337).  With
+`random_dir` (RandoDirWrapper, env_builder.py:110-156) each env keeps a
+target direction in [-pi/2, pi/2], drawn at reset, prefixed to the
+observation as (cos, sin) and steering the task's velocity reward; with
+`dir_update_interval` it is redrawn every that many observations (the
+reset's counts as the first).
 
 The MMDR options (the reference's frame_extract configs): the depth ring
 holds 4 * frame_extract frames; the observation takes four of them per
@@ -25,6 +34,10 @@ step with `reset_frame_idx_each_step`, and with `interpolation` each of
 the four is the mean of frames idx .. idx + interp_delay.  With `moving`
 the first 50 boxes move every step (`terrain.moving_blocks_step`) and
 the window, the camera and the stored terrain all see the moved boxes.
+
+On `random_sphere_with_subgoal` the window and its contact read take the
+NEAR_BOXES obstacle spheres nearest to each base (`_pruned_spheres`), the
+camera all of them.
 
 Randomness: every draw goes through `draw_reset`, `draw_frame_delays`
 and `draw_step` (which takes the blind spots from `draw_blind_spots`)
@@ -44,6 +57,7 @@ from vision4leg_torch import resolve_device
 from vision4leg_torch.envs import camera as cam
 from vision4leg_torch.envs import dynamics_rando, tasks
 from vision4leg_torch.envs import terrain as terr
+from vision4leg_torch.envs import wrappers
 from vision4leg_torch.ops import physics_kernel
 from vision4leg_torch.physics import contact, engine, maths
 from vision4leg_torch.robots import a1, a1_model, action_filter
@@ -113,12 +127,18 @@ class EnvConfig:
     return 4 * self.frame_extract
 
   @property
+  def disp_channels(self) -> int:
+    return 7 if self.rotate_sensor else 3
+
+  @property
   def proprio_dim(self) -> int:
     d = 12 + 36
+    if self.random_dir:
+      d += 2
     if self.goal:
       d += 6
     if not self.no_displacement:
-      d += 9
+      d += 3 * self.disp_channels
     if self.add_last_action_input:
       d += 36
     return d
@@ -130,11 +150,6 @@ class EnvConfig:
   @property
   def obs_dim(self) -> int:
     return self.proprio_dim + self.image_dim
-
-
-# options of the JAX env this port does not run yet (ROADMAP queue 1 item
-# 4)
-_UNPORTED = ("random_dir", "rotate_sensor")
 
 
 class BlindSpots(NamedTuple):
@@ -153,6 +168,7 @@ class StepDraws(NamedTuple):
   blind: Optional[BlindSpots]
   move_dirs: Optional[torch.Tensor]     # (E, K) int in [0, 20)
   frame_head: Optional[torch.Tensor]    # (E,) int in [1, frame_extract)
+  dir_angle: Optional[torch.Tensor] = None  # (E,) redraw in [-pi/2, pi/2]
 
 
 class ResetDraws(NamedTuple):
@@ -161,6 +177,7 @@ class ResetDraws(NamedTuple):
   dyn: a1.DynamicsParams
   init_jitter: torch.Tensor   # (E, 2) xy offset of the start position
   blind: BlindSpots
+  dir_angle: Optional[torch.Tensor] = None  # (E,) with random_dir
 
 
 @dataclasses.dataclass
@@ -171,10 +188,13 @@ class EnvState:
   task: tasks.TaskState
   motor_hist: torch.Tensor        # (E, 3, 12) newest first
   imu_hist: torch.Tensor          # (E, 3, 4)
-  disp_hist: torch.Tensor         # (E, 3, 3)
+  disp_hist: torch.Tensor         # (E, 3, disp_channels)
   last_action_hist: torch.Tensor  # (E, 3, 12)
   last_action: torch.Tensor       # (E, 12)
   last_base_pos: torch.Tensor     # (E, 3)
+  last_base_quat: torch.Tensor    # (E, 4) xyzw, for rotate_sensor's delta
+  dir_angle: torch.Tensor         # (E,) RandoDir target angle (0 without)
+  dir_count: torch.Tensor         # (E,) int32 RandoDir observation count
   filter_state: action_filter.FilterState  # (E, 2, 12) each history
   frames: torch.Tensor            # (E, num_stored, 64, 64) or (E, 1, 1, 1)
   frame_idx: torch.Tensor         # (E, 4) int32 ring slots observed
@@ -235,11 +255,6 @@ class A1GymEnv:
       raise NotImplementedError(
           f"terrain {cfg.terrain_type!r} is not ported yet (ROADMAP queue "
           "1 item 4)")
-    unported = [k for k in _UNPORTED if getattr(cfg, k)]
-    if unported:
-      raise NotImplementedError(
-          f"env options {unported} are not ported yet (ROADMAP queue 1 "
-          "item 4)")
     self.cfg = cfg
     self._flat = cfg.terrain_type in terr.FLAT_TERRAINS
     self.device = resolve_device(device)
@@ -274,6 +289,11 @@ class A1GymEnv:
     cfg = self.cfg
     return (cfg.reset_frame_idx and cfg.frame_extract > 1
             and not cfg.fixed_delay_observation)
+
+  @property
+  def _redraws_dir(self) -> bool:
+    """A step may redraw the RandoDir target (JAX env.py:538-548)."""
+    return self.cfg.random_dir and self.cfg.dir_update_interval is not None
 
   @property
   def _each_step_head(self) -> bool:
@@ -314,7 +334,10 @@ class A1GymEnv:
     r = cfg.random_init_range
     jitter = (torch.rand(n_env, 2, generator=gen, device=self.device) * 2 * r
               - r) if r > 0 else torch.zeros(n_env, 2, device=self.device)
-    return ResetDraws(terrain, dyn, jitter, self.draw_blind_spots(n_env, gen))
+    blind = self.draw_blind_spots(n_env, gen)
+    angle = (wrappers.draw_dir_angle(gen, n_env, self.device)
+             if cfg.random_dir else None)
+    return ResetDraws(terrain, dyn, jitter, blind, angle)
 
   def draw_blind_spots(self, n_env: int, gen: torch.Generator) -> BlindSpots:
     n = cam.NUM_BLIND_SPOTS
@@ -345,7 +368,9 @@ class A1GymEnv:
                           device=self.device)
             if self._each_step_head else None)
     blind = self.draw_blind_spots(n_env, gen) if cfg.get_image else None
-    return StepDraws(blind, move, head)
+    angle = (wrappers.draw_dir_angle(gen, n_env, self.device)
+             if self._redraws_dir else None)
+    return StepDraws(blind, move, head, angle)
 
   def _frame_idx(self, n_env: int, draws: FrameDraws):
     """(frame_idx (E, 4), interp_delay (E,)) of a reset (JAX env.py
@@ -392,14 +417,27 @@ class A1GymEnv:
                           device=self.device)
               if cfg.get_image else torch.zeros(E, 1, 1, 1,
                                                 device=self.device))
+    task = tasks.init_task_state(pos, terr.NUM_SUBGOALS)
+    if cfg.random_dir:
+      # RandoDirWrapper.reset (env_builder.py:145-156): the task's velocity
+      # reward points along the drawn direction
+      angle = draws.dir_angle
+      task = task.replace(target_vel_dir=wrappers.dir_vector(angle))
+    else:
+      angle = torch.zeros(E, device=self.device)
+    dc = cfg.disp_channels
     state = EnvState(
-        robot=rs, dyn=draws.dyn, terrain=draws.terrain,
-        task=tasks.init_task_state(pos, terr.NUM_SUBGOALS),
+        robot=rs, dyn=draws.dyn, terrain=draws.terrain, task=task,
         motor_hist=torch.zeros(E, 3, 12, device=self.device),
         imu_hist=torch.zeros(E, 3, 4, device=self.device),
-        disp_hist=torch.zeros(E, 3, 3, device=self.device),
+        disp_hist=torch.zeros(E, 3, dc, device=self.device),
         last_action_hist=torch.zeros(E, 3, 12, device=self.device),
         last_action=cmd, last_base_pos=pos.clone(),
+        last_base_quat=maths.wxyz_to_xyzw(rs.phys.quat),
+        dir_angle=angle,
+        # the reset's observation is RandoDir's first (env_builder.py
+        # :127-133)
+        dir_count=torch.ones(E, dtype=torch.int32, device=self.device),
         filter_state=action_filter.init_state(cmd), frames=frames,
         frame_idx=frame_idx, interp_delay=interp_delay,
         step_counter=torch.zeros(E, dtype=torch.int32, device=self.device))
@@ -407,7 +445,7 @@ class A1GymEnv:
     state = state.replace(
         motor_hist=m[:, None].expand(E, 3, 12).clone(),
         imu_hist=imu[:, None].expand(E, 3, 4).clone(),
-        disp_hist=disp[:, None].expand(E, 3, 3).clone(),
+        disp_hist=disp[:, None].expand(E, 3, dc).clone(),
         last_action_hist=cmd[:, None].expand(E, 3, 12).clone())
     if cfg.get_image:
       depth = self._render(state, draws.blind)
@@ -423,6 +461,10 @@ class A1GymEnv:
     rpy, drpy = a1.delayed_rpy_and_rate(rs, dyn, dt)
     imu = torch.stack([rpy[:, 0], rpy[:, 1], drpy[:, 0], drpy[:, 1]], dim=-1)
     disp = rs.phys.pos - state.last_base_pos
+    if self.cfg.rotate_sensor:
+      # BaseDisplacementAndRotateSensor: the xyzw quaternion delta too
+      dquat = maths.wxyz_to_xyzw(rs.phys.quat) - state.last_base_quat
+      disp = torch.cat([disp, dquat], dim=-1)
     return motor, imu, disp
 
   def _render(self, state: EnvState, blind: BlindSpots):
@@ -473,6 +515,8 @@ class A1GymEnv:
     cfg = self.cfg
     E = state.step_counter.shape[0]
     parts = []
+    if cfg.random_dir:
+      parts.append(wrappers.dir_vector(state.dir_angle))
     if cfg.goal:
       parts += [state.robot.phys.pos, state.terrain.goal_pos]
     if not cfg.no_displacement:
@@ -505,8 +549,9 @@ class A1GymEnv:
       fstate, act12 = action_filter.apply(self._filter_coeffs,
                                           state.filter_state, act12)
       state = state.replace(filter_state=fstate)
-    state = state.replace(last_action=act12,
-                          last_base_pos=state.robot.phys.pos)
+    state = state.replace(
+        last_action=act12, last_base_pos=state.robot.phys.pos,
+        last_base_quat=maths.wxyz_to_xyzw(state.robot.phys.quat))
     if self.cfg.moving:
       state = state.replace(terrain=terr.moving_blocks_step(
           state.terrain, state.step_counter, draws.move_dirs))
@@ -525,6 +570,20 @@ class A1GymEnv:
     d = dx * dx + dy * dy + torch.where(boxes[..., 7] > 0.5, 0.0, 1e9)
     idx = torch.sort(d, dim=-1, stable=True).indices[:, :self.NEAR_BOXES]
     return torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 8))
+
+  def _pruned_spheres(self, spheres, base_xy):
+    """The NEAR_BOXES obstacle spheres (E, Q, 5) nearest to base_xy
+    (E, 2) by surface distance, invalid ones last (JAX
+    `_pruned_spheres`, env.py:220-229), ties to the lower index as
+    jax.lax.top_k breaks them."""
+    if spheres.shape[1] <= self.NEAR_BOXES:
+      return spheres
+    dx = base_xy[:, None, 0] - spheres[..., 0]
+    dy = base_xy[:, None, 1] - spheres[..., 1]
+    d = (torch.sqrt(dx * dx + dy * dy) - spheres[..., 3]
+         + torch.where(spheres[..., 4] > 0.5, 0.0, 1e9))
+    idx = torch.sort(d, dim=-1, stable=True).indices[:, :self.NEAR_BOXES]
+    return torch.gather(spheres, 1, idx[..., None].expand(-1, -1, 5))
 
   def _robot_window(self, *args, **kw):
     """physics_kernel.robot_window, which models flat ground only: a
@@ -567,7 +626,7 @@ class A1GymEnv:
       return self._step_post(states, rs, act12, pen, draws)
     pos_xy = states.robot.phys.pos[:, :2]
     boxes = self._pruned_boxes(states.terrain.boxes, pos_xy)
-    spheres = states.terrain.obstacle_spheres
+    spheres = self._pruned_spheres(states.terrain.obstacle_spheres, pos_xy)
     fric_box = states.dyn.lateral_friction
     fric_ground = fric_box * cfg.fric_coeff[0]
     rs, pen = self._robot_window(
@@ -620,6 +679,15 @@ class A1GymEnv:
         state.terrain.goal_pos)
     state = state.replace(task=task_state.replace(subgoal_trackers=trackers),
                           step_counter=state.step_counter + 1)
+    if self._redraws_dir:
+      # RandoDirWrapper.observation (env_builder.py:127-142): every
+      # dir_update_interval observations the direction is redrawn; it
+      # steers the next step's reward and this step's observation
+      rd, vec = wrappers.rando_dir_advance(
+          wrappers.RandoDirState(state.dir_angle, state.dir_count),
+          draws.dir_angle, cfg.dir_update_interval)
+      state = state.replace(dir_angle=rd.angle, dir_count=rd.step_count,
+                            task=state.task.replace(target_vel_dir=vec))
     if cfg.get_image:
       capture = (state.step_counter % cfg.get_image_interval) == 0
       if self._each_step_head:

@@ -23,6 +23,10 @@ each env's heightfield in the contact model and the camera, and no
 window launch.  The camera, the box pruning and the task plumbing are
 A1GymEnv's.
 
+`controller_step` advances every env by one controller tick alone (the
+locomotion-controller demo's loop): an exact KKT inverse, then one tick
+of the flat step's loop.
+
 Reset settles every env for settle_steps * substeps substeps from the
 standing pose at its own start position, as the reference does: on flat
 ground through one non-hybrid launch of the same kernel (boxes pruned at
@@ -114,7 +118,8 @@ class A1MPCGymEnv(A1GymEnv):
     self.mpc_cfg = convex_mpc.MpcConfig(
         mass=float(P.MPC_BODY_MASS),
         inertia=tuple(float(x) for x in P.MPC_BODY_INERTIA),
-        qp_weights=MPC_WEIGHTS, horizon=10, timestep=0.025, alpha=1e-5)
+        qp_weights=MPC_WEIGHTS, horizon=10, timestep=0.025, alpha=1e-5,
+        admm_iters=40)
     # frozen Ruiz scaling and canonical KKT inverse of the warm QP path,
     # computed once in float64 on the CPU
     self.mpc_canon = convex_mpc.canonical_constants(self.mpc_cfg).to(
@@ -239,12 +244,12 @@ class A1MPCGymEnv(A1GymEnv):
     return acts, lin, acts[:, 1]
 
   def _window_world(self, states: MpcEnvState):
-    """The world a flat step's windows see: the boxes pruned at the
-    step's start, the spheres and the two friction coefficients (E,)."""
+    """The world a flat step's windows see: the boxes and the spheres
+    pruned at the step's start and the two friction coefficients (E,)."""
     pos_xy = states.robot.phys.pos[:, :2]
     fric_box = states.dyn.lateral_friction
     return (self._pruned_boxes(states.terrain.boxes, pos_xy),
-            states.terrain.obstacle_spheres,
+            self._pruned_spheres(states.terrain.obstacle_spheres, pos_xy),
             fric_box * self.cfg.fric_coeff[0], fric_box)
 
   def step_inputs(self, states: MpcEnvState, actions):
@@ -292,13 +297,7 @@ class A1MPCGymEnv(A1GymEnv):
 
     # one exact KKT inverse per env step from the step-start pose; the
     # ticks' Newton-Schulz steps track the drift within the step
-    rpy0 = maths.quat_to_rpy(rs.phys.quat)
-    feet0 = lk.foot_positions_base_frame(rs.phys.joint_q)
-    yawless = lambda r: torch.cat([r[:, :2], torch.zeros_like(r[:, 2:])], 1)
-    kinv = convex_mpc.kkt_inverse(self.mpc_cfg, self.mpc_canon,
-                                  yawless(rpy0), feet0)
-    cs = states.controller
-    cs = cs.replace(qp_warm=cs.qp_warm.replace(kinv=kinv))
+    cs = self._refresh_kkt(states.controller, rs)
     ticks = self._window_ticks if self.kernel_capable else self._engine_ticks
     rs, cs, t, pen = ticks(states, cs, lin, ang)
     states = states.replace(robot=rs, controller=cs, current_time=t)
@@ -333,27 +332,53 @@ class A1MPCGymEnv(A1GymEnv):
     obs = torch.where(torch.isfinite(obs), obs, 0.0)
     return states, obs, rew, is_done, {}
 
-  def _window_ticks(self, states: MpcEnvState, cs, lin, ang):
-    """The ticks of a flat step (JAX `step_batch`, mpc_env.py:340-419):
-    one hybrid window launch each, boxes pruned at the step's start.  The
-    first tick's contacts are read from the step's start; later ticks
-    take the window's post-state penetration, which is the next tick's
+  def _refresh_kkt(self, cs: ctrl.ControllerState, rs: a1.RobotState):
+    """cs with the warm QP's KKT inverse computed exactly from the
+    yawless pose and the feet of `rs`."""
+    rpy = maths.quat_to_rpy(rs.phys.quat)
+    feet = lk.foot_positions_base_frame(rs.phys.joint_q)
+    kinv = convex_mpc.kkt_inverse(
+        self.mpc_cfg, self.mpc_canon,
+        torch.cat([rpy[:, :2], torch.zeros_like(rpy[:, 2:])], 1), feet)
+    return cs.replace(qp_warm=cs.qp_warm.replace(kinv=kinv))
+
+  def _window_ticks(self, states: MpcEnvState, cs, lin, ang, n_ticks=None):
+    """The ticks of a flat step (JAX `step_batch`, mpc_env.py:340-419),
+    policy_freq of them unless n_ticks is given: the controller stack,
+    then one hybrid window launch of num_action_repeat * substeps
+    substeps, boxes and spheres pruned at the step's start.  The first
+    tick's contacts are read from the step's start; later ticks take the
+    window's post-state penetration, which is the next tick's
     start-of-tick world.  Returns (robot state, controller, clock (E,),
     the post-step penetration (E, P, 2))."""
     cfg = self.cfg
-    rs, dyn = states.robot, states.dyn
-    boxes, spheres, fric_ground, fric_box = self._window_world(states)
-    pen = self._contact_pen(rs, boxes, spheres, fric_ground, fric_box)
-    t = states.current_time
-    n_sub = cfg.num_action_repeat * cfg.substeps
-    for _ in range(cfg.policy_freq):
+    world = self._window_world(states)
+    rs, t = states.robot, states.current_time
+    pen = self._contact_pen(rs, *world)
+    for _ in range(cfg.policy_freq if n_ticks is None else n_ticks):
       cs, swing_q, stance_tau, stance_mask = self.controller_tick(
           cs, rs, pen, t, lin, ang)
       rs, pen = self._robot_window(
-          self.model, rs, swing_q, dyn, boxes, spheres, fric_ground,
-          fric_box, n_sub, False, stance_tau, stance_mask)
+          self.model, rs, swing_q, states.dyn, *world,
+          cfg.num_action_repeat * cfg.substeps, False, stance_tau,
+          stance_mask)
       t = t + cfg.num_action_repeat * cfg.time_step_s
     return rs, cs, t, pen
+
+  def controller_step(self, states: MpcEnvState, lin, ang) -> MpcEnvState:
+    """Every env advanced by one controller tick on flat ground at the
+    commands lin (E, 3) and ang (E,), as the locomotion-controller demo
+    drives the JAX env's `_controller_tick` (mpc_env.py:185-232): one
+    exact KKT inverse from the yawless pose, then one of `_window_ticks`
+    (one hybrid window launch) and the clock.  No task, reward or
+    camera."""
+    if not self.kernel_capable:
+      raise NotImplementedError(
+          f"controller_step runs the physics window on flat ground; "
+          f"terrain {self.cfg.terrain_type!r} has a heightfield")
+    cs = self._refresh_kkt(states.controller, states.robot)
+    rs, cs, t, _ = self._window_ticks(states, cs, lin, ang, n_ticks=1)
+    return states.replace(robot=rs, controller=cs, current_time=t)
 
   def _engine_ticks(self, states: MpcEnvState, cs, lin, ang):
     """The ticks of a heightfield step (JAX `step` and `_controller_tick`,

@@ -12,9 +12,9 @@ slabs before the pillars), its `_and_heightfield` variants (the pillars on
 a random 256 x 256 heightfield) and the moving obstacles' per-step
 displacement (`moving_blocks_step`); `random_heightfield`; the flat
 challenge terrains `stairs`, `multi_stairs`, `random_blocks` and
-`random_chair_desk`; the non-flat `random_hill`, `mount`, `random_mount`
-and `triangle_mesh`.  `random_sphere_with_subgoal` is ROADMAP queue 1
-item 4.
+`random_chair_desk`; the flat `random_sphere_with_subgoal` (50 obstacle
+spheres); the non-flat `random_hill`, `mount`, `random_mount` and
+`triangle_mesh`.
 
 Every random generator is a draw function and a state-from-draws function
 (`*_state`), so that tests can feed the JAX package's draws.  The mount
@@ -268,10 +268,10 @@ def _raw_dirs(gen, n_env, n_boxes, device, moving):
 
 
 def _terrain(boxes, box_dirs, subgoals=None, goal_pos=None,
-             field=None) -> TerrainState:
+             field=None, spheres=None) -> TerrainState:
   """A TerrainState of boxes (E, K, 8) and their directions (E, K); the
-  subgoals, the goal and the heightfield default to none, zeros and the
-  flat 2 x 2 grid."""
+  subgoals, the goal, the heightfield and the obstacle spheres default to
+  none, zeros, the flat 2 x 2 grid and none."""
   n_env, dev = boxes.shape[0], boxes.device
   return TerrainState(
       **(field if field is not None else _flat_field(n_env, dev)),
@@ -280,7 +280,8 @@ def _terrain(boxes, box_dirs, subgoals=None, goal_pos=None,
                 else torch.zeros(n_env, NUM_SUBGOALS, 2, device=dev)),
       goal_pos=(goal_pos if goal_pos is not None
                 else torch.zeros(n_env, 3, device=dev)),
-      obstacle_spheres=torch.zeros(n_env, 0, 5, device=dev))
+      obstacle_spheres=(spheres if spheres is not None
+                        else torch.zeros(n_env, 0, 5, device=dev)))
 
 
 def _still(n_env, n_boxes, device):
@@ -689,6 +690,42 @@ def gen_thin_wide(gen: torch.Generator, n_env: int, device,
                 moving))
 
 
+NUM_OBSTACLE_SPHERES = 50
+
+
+def draw_spheres(gen, n_env, device):
+  """The sphere terrain's draws: the sphere centers (E, 50, 2) in
+  [2, -3] .. [16, 3], then the subgoals (E, 50, 2)."""
+  centers = _uniform(gen, (n_env, NUM_OBSTACLE_SPHERES, 2), (2.0, -3.0),
+                     (16.0, 3.0), device)
+  subgoals = _uniform(gen, (n_env, NUM_SUBGOALS, 2), (2.0, -2.2),
+                      (30.0, 2.2), device)
+  return centers, subgoals
+
+
+def spheres_state(centers, subgoals) -> TerrainState:
+  """random_sphere_with_subgoal from its draws (JAX
+  `gen_spheres_with_subgoal`, terrain.py:636-650; the reference's
+  `_generate_spheres_and_subgoal` :1249-1310): spheres [x, y, z, r,
+  valid] of radius 0.2 at z 0.2 over centers (E, Q, 2), no boxes, the
+  subgoals (E, 50, 2)."""
+  n_env, n, _ = centers.shape
+  dev = centers.device
+  spheres = torch.cat([
+      centers, torch.full((n_env, n, 2), SUBGOAL_RADIUS, device=dev),
+      torch.ones(n_env, n, 1, device=dev)], dim=-1)
+  return _terrain(*_no_boxes(n_env, dev), subgoals=subgoals,
+                  spheres=spheres)
+
+
+def gen_spheres_with_subgoal(gen: torch.Generator, n_env: int, device,
+                             moving: bool = False) -> TerrainState:
+  """random_sphere_with_subgoal: 50 obstacle spheres on flat ground and
+  50 subgoals (no boxes, so `moving` moves nothing)."""
+  del moving
+  return spheres_state(*draw_spheres(gen, n_env, device))
+
+
 def moving_blocks_step(terrain: TerrainState, step_counter,
                        rand_dirs) -> TerrainState:
   """One step of the moving obstacles (a1_randomizer_ground.py:411-443;
@@ -721,6 +758,7 @@ TERRAIN_GENERATORS = {
     "random_heightfield": gen_random_heightfield,
     "stairs": gen_stairs,
     "multi_stairs": gen_multi_stairs,
+    "random_sphere_with_subgoal": gen_spheres_with_subgoal,
     "random_chair_desk": gen_chair_desk,
     "random_hill": gen_hill,
     "random_mount": gen_random_mount,
@@ -763,6 +801,7 @@ INIT_POSITION = {
     "random_blocks_sparse_thin_wide": (0, 0, 0.32),
     "random_hill": (0, 0, 2.25),
     "multi_stairs": (1.0, 0, 0.42),
+    "random_sphere_with_subgoal": (0, 0, 0.32),
     "random_chair_desk": (0, 0, 0.32),
     "mount": (1, 1, 1.56),
     "random_mount": (1, 1, 1.56),

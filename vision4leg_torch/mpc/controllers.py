@@ -1,5 +1,5 @@
 """Model-based locomotion controller stack, batched over envs (torch mirror
-of vision4leg_tpu.mpc.controllers, warm-path stance controller only).
+of vision4leg_tpu.mpc.controllers).
 
 Reference: mpc_controller/{openloop_gait_generator, com_velocity_estimator,
 raibert_swing_leg_controller, torque_stance_leg_controller}.py, as pure
@@ -8,9 +8,10 @@ functions over a `ControllerState` whose tensors lead with the env axis.
 Leg states use the reference encoding (gait_generator_lib.LegState):
 0=SWING, 1=STANCE, 2=EARLY_CONTACT, 3=LOSE_CONTACT.
 
-The cold per-tick QP of the JAX package (`stance_action`) is not ported
-(ROADMAP queue 1 item 2); the MPC env's hot loop runs only
-`stance_action_warm`.
+The stance controller comes in two forms: `stance_action` solves each
+tick's QP cold (`convex_mpc.compute_contact_forces`), and
+`stance_action_warm`, which the MPC env's hot loop runs, on the
+warm-started per-tick path.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import torch
 
 from vision4leg_torch.mpc import leg_kinematics as lk
 from vision4leg_torch.mpc.convex_mpc import (
-    CanonicalScaling, MpcConfig, WarmState, compute_contact_forces_warm)
+    CanonicalScaling, MpcConfig, WarmState, compute_contact_forces,
+    compute_contact_forces_warm)
 from vision4leg_torch.robots import a1_params as P
 
 SWING, STANCE, EARLY_CONTACT, LOSE_CONTACT = 0, 1, 2, 3
@@ -197,6 +199,47 @@ def swing_action(cs: ControllerState, gait_cfg: GaitConfig, yaw_rate,
   return cs, joint_angles
 
 
+def _stance_inputs(cs: ControllerState, rpy, desired_speed,
+                   desired_twisting_speed, friction):
+  """The contact states (E, 4) and the QP's state arguments after the
+  feet's and the joints' (com position, velocity, yawless rpy; friction,
+  desired position, velocity, rpy and angular velocity) of a stance
+  tick."""
+  E = rpy.shape[0]
+  contact_state = ((cs.desired_leg_state == STANCE)
+                   | (cs.desired_leg_state == EARLY_CONTACT)).to(torch.int32)
+  rpy_yawless = torch.cat([rpy[:, :2], torch.zeros_like(rpy[:, 2:])], 1)
+  zero = torch.zeros_like(desired_twisting_speed)[:, None]
+  head = (rpy.new_zeros(E, 1),              # com_position: from the feet
+          com_velocity_body(cs), rpy_yawless)
+  tail = (rpy.new_full((E, 4), friction),
+          lk.const("stance.height", [0.0, 0.0, MPC_BODY_HEIGHT], rpy),
+          torch.cat([desired_speed[:, :2], zero], 1),
+          lk.const("stance.zeros", [0.0, 0.0, 0.0], rpy),
+          torch.cat([zero, zero, desired_twisting_speed[:, None]], 1))
+  return contact_state, head, tail
+
+
+def _joint_torques(forces, joint_q):
+  """tau = f^T J per leg (minitaur.py:726-737 MapContactForceToJointTorques):
+  forces (E, 4, 3) -> (E, 12)."""
+  jacs = lk.all_leg_jacobians(joint_q)                      # (E, 4, 3, 3)
+  return torch.einsum("elj,elji->eli", forces, jacs).reshape(-1, 12)
+
+
+def stance_action(mpc_cfg: MpcConfig, cs: ControllerState, rpy, rpy_rate,
+                  foot_positions, joint_q, desired_speed,
+                  desired_twisting_speed, friction: float = 0.45):
+  """TorqueStanceLegController.get_action (:119-185) with each tick's QP
+  solved cold: joint torques (E, 12) for the stance legs (the caller
+  masks the others) and the contact states (E, 4)."""
+  contact_state, head, tail = _stance_inputs(
+      cs, rpy, desired_speed, desired_twisting_speed, friction)
+  forces = compute_contact_forces(mpc_cfg, *head, rpy_rate, contact_state,
+                                  foot_positions, *tail)
+  return _joint_torques(forces, joint_q), contact_state
+
+
 def stance_action_warm(mpc_cfg: MpcConfig, canon: CanonicalScaling,
                        cs: ControllerState, rpy, rpy_rate, foot_positions,
                        joint_q, desired_speed, desired_twisting_speed,
@@ -205,23 +248,11 @@ def stance_action_warm(mpc_cfg: MpcConfig, canon: CanonicalScaling,
   per-tick QP: joint torques (E, 12) for the stance legs (the caller masks
   the others), the contact states (E, 4) and cs' with the new warm
   state."""
-  E = rpy.shape[0]
-  contact_state = ((cs.desired_leg_state == STANCE)
-                   | (cs.desired_leg_state == EARLY_CONTACT)).to(torch.int32)
-  com_vel = com_velocity_body(cs)
-  rpy_yawless = torch.cat([rpy[:, :2], torch.zeros_like(rpy[:, 2:])], 1)
-  zero = torch.zeros_like(desired_twisting_speed)[:, None]
+  contact_state, head, tail = _stance_inputs(
+      cs, rpy, desired_speed, desired_twisting_speed, friction)
   forces, warm = compute_contact_forces_warm(
-      mpc_cfg, canon, cs.qp_warm,
-      rpy.new_zeros(E, 1),                # com_position: from the feet
-      com_vel, rpy_yawless, rpy_rate, contact_state, foot_positions,
-      rpy.new_full((E, 4), friction),
-      lk.const("stance.height", [0.0, 0.0, MPC_BODY_HEIGHT], rpy),
-      torch.cat([desired_speed[:, :2], zero], 1),
-      lk.const("stance.zeros", [0.0, 0.0, 0.0], rpy),
-      torch.cat([zero, zero, desired_twisting_speed[:, None]], 1),
-      warm_iters=mpc_cfg.warm_iters, ns_iters=mpc_cfg.ns_iters)
-  jacs = lk.all_leg_jacobians(joint_q)                      # (E, 4, 3, 3)
-  # tau = f^T J per leg (minitaur.py:726-737 MapContactForceToJointTorques)
-  torques = torch.einsum("elj,elji->eli", forces, jacs)
-  return torques.reshape(E, 12), contact_state, cs.replace(qp_warm=warm)
+      mpc_cfg, canon, cs.qp_warm, *head, rpy_rate, contact_state,
+      foot_positions, *tail, warm_iters=mpc_cfg.warm_iters,
+      ns_iters=mpc_cfg.ns_iters)
+  return (_joint_torques(forces, joint_q), contact_state,
+          cs.replace(qp_warm=warm))

@@ -1,6 +1,6 @@
-"""Convex MPC for quadruped stance control, batched over envs: the
-warm-started per-tick path (torch mirror of the warm path of
-vision4leg_tpu.mpc.convex_mpc).
+"""Convex MPC for quadruped stance control, batched over envs (torch
+mirror of vision4leg_tpu.mpc.convex_mpc): the cold adaptive-rho solve and
+the warm-started per-tick path.
 
 Reference: mpc_controller/mpc_osqp.cc (MIT-style convex MPC):
   * 13-dim state [rpy(3), pos(3), omega(3), vel(3), -g] with rpy-rate
@@ -13,20 +13,28 @@ Reference: mpc_controller/mpc_osqp.cc (MIT-style convex MPC):
     with 5 friction-pyramid rows per leg per step; fz bounds scaled by the
     contact state, fz_max = mass * g * 10.
 
+Cold solve (`compute_contact_forces`, the accuracy reference of the warm
+path): modified Ruiz equilibration of each env's QP, then an OSQP-style
+ADMM whose penalty rho is rebalanced per env every `adapt_every`
+iterations by the primal/dual residual ratio, with a fresh KKT inverse
+(`torch.linalg.inv`, LU) at each rho; the friction pyramids stay in
+block-diagonal (5, 3) form (`_admm_box_qp_blockdiag`).  `_admm_box_qp`
+is the same solver for a dense constraint matrix (the QP torque
+optimizer's).
+
 Warm path (what the MPC env's hot loop runs): the Ruiz scaling D, E, c
 and the sigma/rho penalties are frozen per MpcConfig from a canonical
 standing problem (`canonical_constants`); one exact KKT inverse per env
 step (`kkt_inverse`, from the step-start pose) serves every controller
 tick of the step, each tick refining it by Newton-Schulz and running
 `warm_iters` fixed-penalty ADMM iterations from the carried iterates
-(`compute_contact_forces_warm`).  The cold adaptive-rho solver of the JAX
-package is not ported (ROADMAP queue 1 item 2).
+(`compute_contact_forces_warm`).
 
-Every function takes a leading env axis E.  The solver's products never
-run in TF32: `compute_contact_forces_warm` and `kkt_inverse` turn
-TF32 matmuls off for their duration and restore the caller's setting
-(the QP's KKT matrix has cond ~1e6 after the sigma floor; 10-bit
-mantissas turn the iteration into noise).
+Every function takes a leading env axis E.  The solvers' products never
+run in TF32: `compute_contact_forces`, `compute_contact_forces_warm` and
+`kkt_inverse` turn TF32 matmuls off for their duration and restore the
+caller's setting (the QP's KKT matrix has cond ~1e6 after the sigma
+floor; 10-bit mantissas turn the iteration into noise).
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ class MpcConfig(NamedTuple):
   timestep: float = 0.025
   qp_weights: tuple = ()   # 13 values
   alpha: float = 1e-5
+  admm_iters: int = 50     # the cold solve's iteration budget
   rho: float = 0.1
   sigma: float = 1e-6
   # warm-started per-tick path (compute_contact_forces_warm)
@@ -266,6 +275,173 @@ def _build_qp(cfg: MpcConfig, com_position, com_velocity, com_roll_pitch_yaw,
 
 
 # ---------------------------------------------------------------------------
+# the cold solve
+# ---------------------------------------------------------------------------
+
+def _block_add(K, blocks, scale):
+  """K (E, M*c, M*c) with scale * blocks (E, M, c, c) added to its
+  diagonal blocks (in place on K, which is returned); scale is a number
+  or (E, 1, 1, 1)."""
+  E, M, c, _ = blocks.shape
+  K.view(E, M, c, M, c).diagonal(dim1=1, dim2=3).add_(
+      (scale * blocks).permute(0, 2, 3, 1))
+  return K
+
+
+def _cost_scaling(Ps, Dq):
+  """OSQP's cost normalization c (E,) of the variable-scaled P and D q."""
+  return 1.0 / torch.clamp(torch.maximum(
+      torch.mean(torch.amax(torch.abs(Ps), dim=-2), dim=-1),
+      torch.amax(torch.abs(Dq), dim=-1)), min=1e-12)
+
+
+def _ruiz_equilibrate(P, q, A, lb, ub, iters: int = 10):
+  """Modified Ruiz equilibration of each env's QP (OSQP sec. 5.1): scales
+  the variables by D and the constraints by E so that every row and
+  column of [[P, A^T], [A, 0]] has unit inf-norm, then the cost by c.
+  P (E, n, n), q (E, n), A (E, m, n), lb, ub (E, m).  Returns the scaled
+  (P, q, A, lb, ub) and D (E, n) (x = D x_bar).  The A1's SRB inertia
+  gives the condensed P a ~1e7 dynamic range (B carries 1/I)."""
+  Dv = torch.ones_like(q)
+  Ev = torch.ones_like(lb)
+  for _ in range(iters):
+    Ps = Dv[:, :, None] * P * Dv[:, None, :]
+    As = Ev[:, :, None] * A * Dv[:, None, :]
+    col = torch.maximum(torch.amax(torch.abs(Ps), dim=-2),
+                        torch.amax(torch.abs(As), dim=-2))
+    row = torch.amax(torch.abs(As), dim=-1)
+    Dv = Dv / torch.sqrt(torch.clamp(col, min=1e-12))
+    Ev = Ev / torch.sqrt(torch.clamp(row, min=1e-12))
+  Ps = Dv[:, :, None] * P * Dv[:, None, :]
+  c = _cost_scaling(Ps, Dv * q)[:, None]
+  return (c[..., None] * Ps, c * Dv * q, Ev[:, :, None] * A * Dv[:, None, :],
+          Ev * lb, Ev * ub, Dv)
+
+
+def _ruiz_equilibrate_blockdiag(P, q, blocks, lb, ub, iters: int = 10):
+  """_ruiz_equilibrate for a block-diagonal constraint matrix: blocks
+  (E, M, r, c), block i touching only variables [c i, c (i + 1)).  The
+  row and column inf-norms decompose per block, so the dense (M r, M c)
+  matrix is never built; A comes back in block form."""
+  E, M, r, cb = blocks.shape
+  Dv = torch.ones_like(q)
+  Ev = torch.ones_like(lb)
+  for _ in range(iters):
+    Ps = Dv[:, :, None] * P * Dv[:, None, :]
+    As = (Ev.reshape(E, M, r)[..., None] * blocks
+          * Dv.reshape(E, M, cb)[:, :, None, :])
+    col_a = torch.amax(torch.abs(As), dim=2).reshape(E, -1)
+    col = torch.maximum(torch.amax(torch.abs(Ps), dim=-2), col_a)
+    row = torch.amax(torch.abs(As), dim=3).reshape(E, -1)
+    Dv = Dv / torch.sqrt(torch.clamp(col, min=1e-12))
+    Ev = Ev / torch.sqrt(torch.clamp(row, min=1e-12))
+  Ps = Dv[:, :, None] * P * Dv[:, None, :]
+  c = _cost_scaling(Ps, Dv * q)[:, None]
+  As = (Ev.reshape(E, M, r)[..., None] * blocks
+        * Dv.reshape(E, M, cb)[:, :, None, :])
+  return c[..., None] * Ps, c * Dv * q, As, Ev * lb, Ev * ub, Dv
+
+
+def _admm(P, q, lb, ub, a_mv, at_mv, add_ata, iters: int, rho: float,
+          sigma: float, adapt_every: int):
+  """The OSQP-style ADMM of the cold solve on equilibrated data, for
+  constraint products a_mv / at_mv and a function add_ata(K, rho (E,))
+  that adds rho A^T A to K.  Each env keeps its own rho: it starts at
+  rho times the trace scale of its P, and every adapt_every iterations
+  it is rebalanced by the residual ratio (OSQP sec. 5.2) when the
+  suggested change exceeds 5x, with a fresh K^-1.  sigma is floored at
+  1e-6 of a Gershgorin bound of lam_max(P), which keeps K invertible in
+  float32 for the near-singular condensed P.  Every x-update takes one
+  iterative-refinement step against the explicit inverse.  Returns the
+  scaled x (E, n)."""
+  E, n = q.shape
+  eye = torch.eye(n, dtype=P.dtype, device=P.device)
+  scale = torch.clamp(torch.diagonal(P, dim1=-2, dim2=-1).sum(-1) / n,
+                      min=1e-9)
+  rho_v = rho * scale
+  lam_max = torch.amax(torch.sum(torch.abs(P), dim=-1), dim=-1)
+  sig = torch.maximum(sigma * scale, 1e-6 * lam_max)[:, None]
+  mv = lambda A, v: (A @ v[..., None])[..., 0]
+  norm = lambda v: torch.linalg.vector_norm(v, dim=-1)
+  x = torch.zeros_like(q)
+  z = torch.minimum(torch.maximum(torch.zeros_like(lb), lb), ub)
+  y = torch.zeros_like(lb)
+  for _ in range(max(iters // adapt_every, 1)):
+    # LU, not Cholesky: near cond(K) ~ 1 / eps the float32 Cholesky can
+    # lose positive-definiteness to rounding; the pivoted LU stays stable
+    K = add_ata(P + sig[..., None] * eye, rho_v)
+    Kinv = torch.linalg.inv(K)
+    r = rho_v[:, None]
+    for _ in range(adapt_every):
+      rhs = sig * x - q + at_mv(r * z - y)
+      x = mv(Kinv, rhs)
+      x = x + mv(Kinv, rhs - mv(K, x))
+      Ax = a_mv(x)
+      z_new = torch.minimum(torch.maximum(Ax + y / r, lb), ub)
+      y = y + r * (Ax - z_new)
+      z = z_new
+    Ax = a_mv(x)
+    r_prim = norm(Ax - z) / torch.clamp(torch.maximum(norm(Ax), norm(z)),
+                                        min=1e-6)
+    r_dual = norm(mv(P, x) + q + at_mv(y)) / torch.clamp(norm(q), min=1e-6)
+    ratio = torch.sqrt(r_prim / torch.clamp(r_dual, min=1e-12))
+    sug = torch.minimum(torch.maximum(
+        rho_v * torch.clamp(ratio, 0.1, 10.0), 1e-6 * scale), 1e6 * scale)
+    big = torch.maximum(sug / rho_v, rho_v / sug) > 5.0
+    rho_v = torch.where(big, sug, rho_v)
+  return x
+
+
+def _admm_box_qp(P, q, A, lb, ub, iters: int, rho: float, sigma: float,
+                 adapt_every: int = 25):
+  """min 1/2 x^T P x + q^T x s.t. lb <= A x <= ub for every env: P (E, n,
+  n), q (E, n), A (E, m, n), lb, ub (E, m); Ruiz-equilibrated, then
+  `_admm`.  Returns x (E, n)."""
+  P, q, A, lb, ub, D = _ruiz_equilibrate(P, q, A, lb, ub)
+  AtA = A.mT @ A
+  x = _admm(P, q, lb, ub, lambda v: (A @ v[..., None])[..., 0],
+            lambda w: (A.mT @ w[..., None])[..., 0],
+            lambda K, r: K + r[:, None, None] * AtA, iters, rho, sigma,
+            adapt_every)
+  return D * x
+
+
+def _admm_box_qp_blockdiag(P, q, blocks, lb, ub, iters: int, rho: float,
+                           sigma: float, adapt_every: int = 25):
+  """_admm_box_qp for a block-diagonal constraint matrix of blocks
+  (E, M, r, c) (the MPC's friction pyramids: each horizon step's leg
+  couples its 3 force components to its own 5 rows): A x and A^T y are
+  block einsums and A^T A is M (c, c) blocks added to K's diagonal.
+  Returns x (E, M c)."""
+  P, q, As, lb, ub, D = _ruiz_equilibrate_blockdiag(P, q, blocks, lb, ub)
+  E, M, r, cb = As.shape
+  AtA = torch.einsum("emij,emik->emjk", As, As)
+  x = _admm(
+      P, q, lb, ub,
+      lambda v: torch.einsum("emij,emj->emi", As, v.reshape(E, M, cb)
+                             ).reshape(E, -1),
+      lambda w: torch.einsum("emij,emi->emj", As, w.reshape(E, M, r)
+                             ).reshape(E, -1),
+      lambda K, rv: _block_add(K, AtA, rv[:, None, None, None]),
+      iters, rho, sigma, adapt_every)
+  return D * x
+
+
+def compute_contact_forces(cfg: MpcConfig, *state_args):
+  """The cold solve of every env's MPC problem (state_args those of
+  `_build_qp`): Ruiz equilibration, adaptive-rho ADMM over
+  cfg.admm_iters iterations, a fresh KKT inverse at each rho.  Returns
+  the first step's forces (E, legs, 3), the ground reaction negated as
+  the stance controller consumes it."""
+  with no_tf32():
+    P, q, cone, lb, ub = _build_qp(cfg, *state_args)
+    u = _admm_box_qp_blockdiag(P, q, cone, lb, ub, cfg.admm_iters, cfg.rho,
+                               cfg.sigma)
+  E = u.shape[0]
+  return -u[:, : 3 * cfg.num_legs].reshape(E, cfg.num_legs, 3)
+
+
+# ---------------------------------------------------------------------------
 # the warm-started per-tick path
 # ---------------------------------------------------------------------------
 
@@ -293,15 +469,6 @@ class WarmState:
 
   def replace(self, **kw) -> "WarmState":
     return dataclasses.replace(self, **kw)
-
-
-def _block_add(K, blocks, scale):
-  """K (E, M*c, M*c) with scale * blocks (E, M, c, c) added to its
-  diagonal blocks (in place on K, which is returned)."""
-  E, M, c, _ = blocks.shape
-  K.view(E, M, c, M, c).diagonal(dim1=1, dim2=3).add_(
-      (scale * blocks).permute(0, 2, 3, 1))
-  return K
 
 
 def _canonical_qp(cfg: MpcConfig):
