@@ -212,7 +212,38 @@ Phases, each printed with the seconds since start:
      window 16 launches, the observation width the JAX formula's, every
      direction redrawn exactly on the counts the interval divides
      (`DirWatch`);
- 27. one JSON line with every kernel's numbers (launches summed over the
+ 27. a policy the JAX package trained (runs/mmdr_moving_10M: MMDR on
+     moving obstacles), on the port: a copy of the run in a temporary
+     directory, a PPOAgent built from its params.json by the starter's
+     pieces (fused layer on) warm-starts from its model_pf_best.flax,
+     read without JAX (`utils/flax_msgpack.py`): epoch, frames and best
+     eval as its log.csv's; rows 2 and 2ad held against their plain
+     versions on its first observations with the trained weights
+     (`check_layer_case`, B = 1024 and 8); then `evaluate` at 32 envs x
+     999 steps, launches held (row 1 once a step, row 2 twice), the
+     returns (mean, min, max, fall share) printed beside the JAX log's
+     last five evals, the mean held to JAX_EVAL_FLOOR (`phase_jax_run`);
+ 28. the port's locotransformer_viewer on that copy (2 episodes of 999
+     steps, the depth mp4 written and checked non-empty) and env_viewer
+     on thin-goal (64 steps at one env, its env-steps/s), launches held
+     (`phase_viewers`);
+ 29. the layer kernels at 33 tokens, the forward's large instantiation
+     (run right after phase 5): the 16-channel LocoTransformer's
+     tokenizer (seeded random weights, phase 4's observations with eight
+     rgb frames put before the depth) at B = 1024 and 8, and random x,
+     by `check_layer_case`; the forward, forward + backward, plain and
+     library times and bounds at (1024, 33) and (8, 33); row 2 at (1024,
+     17) timed again beside them; the model's pi_v fused against unfused
+     (`phase_layer_33`);
+ 30. 16-step collections at 1024 envs, fused layer on, of config/rl/
+     challenge/locotransformer/hill.json (random_hill, the per-env engine:
+     no window launch) and of thin-goal with terrain_type multi_stairs and
+     random_blocks (the window once a step) (`phase_terrains`);
+ 31. the trajectory-generator wrapper (envs/trajectory_generator.py) on a
+     16-step thin-goal collection at 1024 envs, diagonal_act off: launches
+     held, the phase of the envs no reset restarted, the commands within
+     the joint limits (`phase_trajectory_generator`);
+ 32. one JSON line with every kernel's numbers (launches summed over the
      paths, with each path's count and the shapes run), then the last
      line {"ok": true, "device": {...}}.
 
@@ -224,7 +255,9 @@ rollout, the vision-only baseline's 4 steps, the random-shape MPC
 baseline's 1; the MPC heightfield 2 collection steps and 2 eval steps
 (each step runs 100 substeps of the per-env engine, each reset 400); the
 MPC walk 20 steps at 64 envs; the demo 10 s of its profile's 20 (its
-first two segments).  Widths are the configs' own.
+first two segments); the JAX-trained policy's eval 32 envs of 999 steps,
+its viewer 2 episodes; the env viewer 64 steps at one env.  Widths are
+the configs' own.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
 below), since outputs are compared; phase 7 turns cuDNN's TF32 on for
@@ -237,6 +270,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -563,6 +597,9 @@ def time_window(name, args, card, counts, hybrid=False):
               library_ms=None), ms
 
 
+# the mangled template arguments of the forward's T <= 32 instantiation
+# (csrc TL_ATTN_SMALL = 2, 4)
+SMALL_INSTANTIATION = "ILi2ELi4EE"
 # tolerances of tests/test_pallas.py for the JAX fused layer
 LAYER_FWD_TOL = dict(atol=2e-5, rtol=1e-4)
 LAYER_GRAD_TOL = dict(atol=3e-5, rtol=1e-4)
@@ -652,6 +689,32 @@ def check_layer_case(name, x, w, gen):
   return err, b_err
 
 
+def library_layer(w):
+  """torch.nn.TransformerEncoderLayer (the yardstick, never called by the
+  port) with the weights `w`, in eval mode, on w's device."""
+  import torch
+  D, F = w.w1.shape
+  lib = torch.nn.TransformerEncoderLayer(
+      D, 1, F, dropout=0.0, layer_norm_eps=1e-6, batch_first=True).to(
+          w.w1.device)
+  lib.eval()
+  with torch.no_grad():
+    lib.self_attn.in_proj_weight.copy_(torch.cat([w.wq.t(), w.wk.t(),
+                                                  w.wv.t()]))
+    lib.self_attn.in_proj_bias.copy_(torch.cat([w.bq, w.bk, w.bv]))
+    lib.self_attn.out_proj.weight.copy_(w.wo.t())
+    lib.self_attn.out_proj.bias.copy_(w.bo)
+    lib.linear1.weight.copy_(w.w1.t())
+    lib.linear1.bias.copy_(w.b1)
+    lib.linear2.weight.copy_(w.w2.t())
+    lib.linear2.bias.copy_(w.b2)
+    lib.norm1.weight.copy_(w.ln1_scale)
+    lib.norm1.bias.copy_(w.ln1_bias)
+    lib.norm2.weight.copy_(w.ln2_scale)
+    lib.norm2.bias.copy_(w.ln2_bias)
+  return lib
+
+
 def phase_layer(net, vision_net, obs, card):
   """The fused-layer kernels against their plain versions on the main
   path's inputs: the LocoTransformer's 17 tokens and the vision-only
@@ -707,38 +770,28 @@ def phase_layer(net, vision_net, obs, card):
       f"bit-identical gradients (x and 16 weights)")
   ptx = nvcc.ptxas_counts(nvcc.INFO["transformer_layer"]["log"])
   log(f"transformer_layer_bwd ptxas: {json.dumps({k: v for k, v in ptx.items() if 'bwd' in k})}")
-  # the forward: its registers and spills, and its tensor-core (HMMA)
-  # instructions, which show that its products run on tensor cores
+  # the forward's two instantiations: their registers and spills, and
+  # their tensor-core (HMMA) instructions, which show that their products
+  # run on tensor cores; the small one (T <= 32, every path but the
+  # 16-channel model's) must not spill
   fwd_ptx = {k: v for k, v in ptx.items() if "bwd" not in k}
-  hmma = sum(v for k, v in nvcc.sass_counts("transformer_layer",
+  hmma = {k: v for k, v in nvcc.sass_counts("transformer_layer",
                                              "HMMA").items()
-             if "bwd" not in k)
+          if "bwd" not in k}
   log(f"transformer_layer (forward) ptxas: {json.dumps(fwd_ptx)}; HMMA "
-      f"instructions in its SASS: {hmma}")
-  if hmma == 0 or any(v["spill_store_bytes"] or v["spill_load_bytes"]
-                      for v in fwd_ptx.values()):
-    raise AssertionError("the forward kernel spills or has no tensor-core "
+      f"instructions in their SASS: {hmma}")
+  small = [k for k in fwd_ptx if SMALL_INSTANTIATION in k]
+  if len(small) != 1 or not all(hmma.values()) or \
+     fwd_ptx[small[0]]["spill_store_bytes"] or \
+     fwd_ptx[small[0]]["spill_load_bytes"]:
+    raise AssertionError("the forward kernel's T <= 32 instantiation "
+                         "spills, or an instantiation has no tensor-core "
                          "instructions")
 
   # torch's own layer (eval, no_grad: its fused native path), same weights
   D, F = tokens.shape[-1], w0.w1.shape[1]
-  lib = torch.nn.TransformerEncoderLayer(
-      D, 1, F, dropout=0.0, layer_norm_eps=1e-6, batch_first=True).to(dev)
-  lib.eval()
+  lib = library_layer(w0)
   with torch.no_grad():
-    lib.self_attn.in_proj_weight.copy_(
-        torch.cat([w0.wq.t(), w0.wk.t(), w0.wv.t()]))
-    lib.self_attn.in_proj_bias.copy_(torch.cat([w0.bq, w0.bk, w0.bv]))
-    lib.self_attn.out_proj.weight.copy_(w0.wo.t())
-    lib.self_attn.out_proj.bias.copy_(w0.bo)
-    lib.linear1.weight.copy_(w0.w1.t())
-    lib.linear1.bias.copy_(w0.b1)
-    lib.linear2.weight.copy_(w0.w2.t())
-    lib.linear2.bias.copy_(w0.b2)
-    lib.norm1.weight.copy_(w0.ln1_scale)
-    lib.norm1.bias.copy_(w0.ln1_bias)
-    lib.norm2.weight.copy_(w0.ln2_scale)
-    lib.norm2.bias.copy_(w0.ln2_bias)
     lib_err, lib_ok = _close(lib(tokens), att.layer_math(tokens, w0),
                              **LAYER_FWD_TOL)
   log(f"torch.nn.TransformerEncoderLayer (yardstick) vs plain at "
@@ -2399,48 +2452,19 @@ def sphere_terrain_case(env, states, seed=29):
 def phase_spheres(card, dev):
   """random_sphere_with_subgoal on the window: a 16-step thin-goal
   collection at NUM_ENVS envs with the LocoTransformer, fused layer on
-  (a PPOAgent's rollout; launches held exactly: row 1 once a step, row 2
-  as phase 22's float32 collection); then `sphere_terrain_case` of its
-  last states against the plain version (`compare_with_plain`), two calls
-  with the same bits, timed as phase 3."""
+  (`agent_collection`: launches held exactly, row 1 once a step, row 2
+  as phase 22's float32 collection) and its depth frames non-constant;
+  then `sphere_terrain_case` of its last states against the plain version
+  (`compare_with_plain`), two calls with the same bits, timed as phase
+  3."""
   import torch
-  from vision4leg_torch.algo.agent import PPOAgent
-  from vision4leg_torch.ops import attention as att
   from vision4leg_torch.ops import physics_kernel as pk
-  from vision4leg_torch.starter import common
-  from vision4leg_torch.starter import ppo_locotransformer as starter
   env, meta, params = build_env(CONFIG, dev, SPHERE_OVERRIDES)
-  cfg = common.ppo_config(params)
-  horizon = cfg.epoch_frames // NUM_ENVS
-  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-    agent = PPOAgent(
-        env=env, ac_module=starter.build_module(env, params), cfg=cfg,
-        num_envs=NUM_ENVS, seed=0, logger=None, save_dir=tmp,
-        obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"],
-        reward_scale=meta["reward_scale"], fused_attention=True,
-        fused_update=True, device=dev)
-    pk.robot_window.launches = 0
-    att.fused_transformer_layer.launches = 0
-    att.fused_transformer_layer_bwd.launches = 0
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    cs, traj, last_v = agent.rollout(agent.collector_state)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t
-  launches = {"physics_window": pk.robot_window.launches,
-              "transformer_layer": att.fused_transformer_layer.launches}
-  want = {"physics_window": horizon, "transformer_layer": 4 * horizon + 2}
+  launches, rate, cs, traj = agent_collection("spheres collection", env,
+                                              meta, params, card)
+  horizon = traj.obs.shape[0]
   depth = traj.obs[..., env.cfg.proprio_dim:].reshape(
       horizon, NUM_ENVS, 4, 64, 64)
-  log(f"[spheres collection] {horizon} steps x {NUM_ENVS} envs in "
-      f"{dt:.3f}s = {horizon * NUM_ENVS / dt:.1f} env-steps/s on {card}; "
-      f"launches {launches}, expected {want}; terminals "
-      f"{int(traj.terminals.sum())}")
-  if launches != want or att.fused_transformer_layer_bwd.launches:
-    raise AssertionError("[spheres collection] launch counts")
-  for x in (traj.obs, traj.values, traj.log_probs, traj.rewards, last_v):
-    if not torch.isfinite(x).all():
-      raise AssertionError("[spheres collection] non-finite outputs")
   if not bool((depth.amax((-1, -2)) - depth.amin((-1, -2)) > 0.1).all()):
     raise AssertionError("[spheres collection] constant depth frames")
   states = cs.env_states
@@ -2458,8 +2482,7 @@ def phase_spheres(card, dev):
     raise AssertionError("the sphere case made no sphere contact")
   check_repeatable("spheres", args)
   numbers, ms = time_window("spheres", args, card, counts)
-  return (dict(launches, seconds=dt,
-               env_steps_per_s=horizon * NUM_ENVS / dt),
+  return (dict(launches, env_steps_per_s=rate),
           dict(max_abs_err=rep["max_abs_err"], **numbers), ms,
           rep["max_abs_err"])
 
@@ -2523,6 +2546,408 @@ def phase_random_dir(horizon, card, dev):
       "random_dir + rotate_sensor", CONFIG, starter.build_module, horizon,
       card, dev, watch.check, overrides=RANDOM_DIR_OVERRIDES,
       setup=watch.setup)
+
+
+# --- phases 27-31: JAX-trained runs, viewers, 33 tokens, terrains, TG ------
+JAX_RUN = "runs/mmdr_moving_10M/A1MoveGround/0"
+JAX_RUN_ID = "mmdr_moving_10M"
+# the JAX run's log.csv: its last five evals (epochs 569-609) lie in
+# 396.9-550.5; phase 27 holds the port's eval to half the lowest
+JAX_EVAL_FLOOR = 198.5
+JAX_EVAL_ENVS, JAX_EVAL_STEPS = 32, 999
+VIEWER_EPISODES, VIEWER_STEPS = 2, 999   # the config's max_episode_frames
+ENV_VIEWER_STEPS = 64
+T33_BATCHES = (1024, 8)
+HILL_CONFIG = "config/rl/challenge/locotransformer/hill.json"
+# the 16-channel LocoTransformer's pi_v, fused against unfused: two
+# layers of the forward tolerance and the MLP heads after them
+RGBD_PI_V_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def copy_jax_run(tmp):
+  """A copy of the committed JAX run JAX_RUN under tmp/JAX_RUN_ID (the
+  starters' log_dir/id/env_name/seed layout); returns its work dir."""
+  import shutil
+  root = os.path.dirname(os.path.abspath(__file__))
+  work = os.path.join(tmp, JAX_RUN_ID, "A1MoveGround", "0")
+  shutil.copytree(os.path.join(root, JAX_RUN), work)
+  return work
+
+
+def jax_log(work):
+  """(last epoch, total frames, every eval (epoch, return)) of a run's
+  log.csv."""
+  import csv
+  with open(os.path.join(work, "log.csv"), newline="") as f:
+    rows = list(csv.DictReader(f))
+  evals = [(int(float(r["EPOCH"])), float(r["Eval_Rewards_Average"]))
+           for r in rows if r.get("Eval_Rewards_Average")]
+  return int(float(rows[-1]["EPOCH"])), int(float(rows[-1]["Total Frames"])), \
+      evals
+
+
+def phase_jax_run(card, dev):
+  """A policy the JAX package trained (JAX_RUN, MMDR on moving
+  obstacles), on the port: the agent built from a copy's params.json by
+  the starter's pieces (fused layer on) warm-starts from its .flax
+  snapshot, read without JAX (epoch, frames and best eval as its
+  log.csv's); rows 2 and 2ad held against their plain versions on its
+  first observations with the trained weights (`check_layer_case`); then
+  `evaluate` at JAX_EVAL_ENVS envs x JAX_EVAL_STEPS steps, the launch
+  counts set to 0 just before (row 1 once a step, row 2 twice: pi's two
+  layers), the mean return held to JAX_EVAL_FLOOR.  The float32 physics
+  parts between the implementations at contact onsets, so the returns
+  are compared as distributions, not episode by episode.  Returns the
+  numbers, the launches and the tmp dir's copy (for phase 28)."""
+  import torch
+  from vision4leg_torch.algo.agent import PPOAgent
+  from vision4leg_torch.data import normalizer as norm
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter import ppo_locotransformer as starter
+  from vision4leg_torch.envs.get_env import get_env
+  from vision4leg_torch.utils.logger import Logger
+  tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
+  work = copy_jax_run(tmp)
+  with open(os.path.join(work, "params.json")) as f:
+    params = json.load(f)
+  env, meta = get_env(params["env_name"], params["env"], device=dev)
+  logger = Logger(JAX_RUN_ID, params["env_name"], 0, params, tmp)
+  cfg = common.ppo_config(params)
+  t = time.perf_counter()
+  agent = PPOAgent(
+      env=env, ac_module=starter.build_module(env, params), cfg=cfg,
+      num_envs=NUM_ENVS, seed=0, logger=logger,
+      save_dir=os.path.join(logger.work_dir, "model"),
+      num_eval_envs=JAX_EVAL_ENVS, obs_norm=meta["obs_norm"],
+      env_time_limit=meta["horizon"], reward_scale=meta["reward_scale"],
+      fused_attention=True, fused_update=True,
+      eval_horizon=JAX_EVAL_STEPS, device=dev)
+  epoch = agent.restore_checkpoint()
+  torch.cuda.synchronize()
+  last, frames, evals = jax_log(work)
+  best = max(r for _, r in evals)
+  log(f"[JAX run] PPOAgent from {JAX_RUN}/params.json at {NUM_ENVS} envs, "
+      f"warm start from model_pf_best.flax: epoch {epoch}, "
+      f"{agent.total_frames} frames, best eval {agent.best_eval:.4f} "
+      f"(log.csv: last epoch {last}, {frames} frames, best eval "
+      f"{best:.4f}) in {time.perf_counter() - t:.2f}s")
+  if (epoch, agent.total_frames, agent.best_eval) != (last + 1, frames,
+                                                      best):
+    raise AssertionError("[JAX run] the warm start does not match log.csv")
+
+  # rows 2 and 2ad on the trained weights and the first observations
+  gen = torch.Generator(device=dev).manual_seed(27)
+  net = agent.module
+  with torch.no_grad():
+    obs = norm.filt_with_img_tail(agent.collector_state.normalizer,
+                                  agent.collector_state.raw_obs,
+                                  env.cfg.proprio_dim)
+    tokens = net._tokens(obs)
+    w0, w1 = [att.LayerWeights(*[t.detach() for t in
+                                 att.weights_from_layer(layer)])
+              for layer in net.pf_layers]
+    second = att.layer_math(tokens, w0)
+  max_err, bwd_err = 0.0, 0.0
+  for name, (x_all, w) in {"trained tokens->pf_layers.0": (tokens, w0),
+                           "trained layer-1 out->pf_layers.1": (second, w1)
+                           }.items():
+    for B in (NUM_ENVS, EVAL_BATCH):
+      err, b_err = check_layer_case(name, x_all[:B].contiguous(), w, gen)
+      max_err, bwd_err = max(max_err, err), max(bwd_err, b_err)
+
+  pk.robot_window.launches = 0
+  att.fused_transformer_layer.launches = 0
+  att.fused_transformer_layer_bwd.launches = 0
+  t = time.perf_counter()
+  rets, steps = agent.evaluate()
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t
+  launches = {"physics_window": pk.robot_window.launches,
+              "transformer_layer": att.fused_transformer_layer.launches}
+  want = {"physics_window": JAX_EVAL_STEPS,
+          "transformer_layer": 2 * JAX_EVAL_STEPS}
+  rets = rets.double().cpu()
+  fell = float((steps < JAX_EVAL_STEPS).float().mean())
+  numbers = dict(mean=float(rets.mean()), min=float(rets.min()),
+                 max=float(rets.max()), std=float(rets.std()),
+                 fall_share=fell, seconds=dt, epoch=epoch,
+                 jax_last_five=evals[-5:])
+  log(f"[JAX run] eval of the JAX-trained policy on {card}: "
+      f"{JAX_EVAL_ENVS} envs x {JAX_EVAL_STEPS} steps in {dt:.2f}s; return "
+      f"mean {numbers['mean']:.2f}, min {numbers['min']:.2f}, max "
+      f"{numbers['max']:.2f}, std {numbers['std']:.2f}, fall share "
+      f"{fell:.3f}; the JAX log's last five evals (epoch, return): "
+      f"{[(e, round(r, 1)) for e, r in evals[-5:]]}; launches {launches} "
+      f"(expected {want})")
+  if launches != want or att.fused_transformer_layer_bwd.launches:
+    raise AssertionError(f"[JAX run] launch counts {launches}")
+  if not numbers["mean"] >= JAX_EVAL_FLOOR:
+    raise AssertionError(f"[JAX run] mean eval return {numbers['mean']:.2f}"
+                         f" below {JAX_EVAL_FLOOR}")
+  return numbers, launches, (max_err, bwd_err), tmp
+
+
+def phase_viewers(tmp, card, dev):
+  """The port's locotransformer_viewer on phase 27's copy of the JAX run
+  (VIEWER_EPISODES episodes of VIEWER_STEPS steps, the depth video
+  written into tmp and checked non-empty), then env_viewer on thin-goal
+  for ENV_VIEWER_STEPS steps at one env with its env-steps/s; each with
+  the launch counts set to 0 just before (the viewer's policy runs the
+  unfused layer, as the JAX viewer's: row 1 once a step)."""
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import env_viewer, locotransformer_viewer
+  from vision4leg_torch.starter.viewer_common import run_viewer
+  video = os.path.join(tmp, "depth.mp4")
+  work = os.path.join(tmp, JAX_RUN_ID, "A1MoveGround", "0")
+  paths = {}
+  for label, call, steps in (
+      ("viewer", lambda: run_viewer(
+          locotransformer_viewer._build_module,
+          ["--config", os.path.join(work, "params.json"), "--log_dir", tmp,
+           "--id", JAX_RUN_ID, "--episodes", str(VIEWER_EPISODES),
+           "--video", video, "--device", str(dev)], horizon=VIEWER_STEPS),
+       VIEWER_STEPS),
+      ("env viewer", lambda: env_viewer.main(
+          ["--config", os.path.join(os.path.dirname(os.path.abspath(
+              __file__)), CONFIG), "--steps", str(ENV_VIEWER_STEPS),
+           "--device", str(dev)]),
+       ENV_VIEWER_STEPS)):
+    pk.robot_window.launches = 0
+    att.fused_transformer_layer.launches = 0
+    t = time.perf_counter()
+    out = call()
+    dt = time.perf_counter() - t
+    paths[label] = {"physics_window": pk.robot_window.launches,
+                    "transformer_layer": att.fused_transformer_layer.launches,
+                    "seconds": dt}
+    log(f"[{label}] {dt:.2f}s on {card}; launches {paths[label]}")
+    if (paths[label]["physics_window"] != steps
+        or paths[label]["transformer_layer"]):
+      raise AssertionError(f"[{label}] launch counts {paths[label]}")
+    if label == "viewer":
+      size = os.path.getsize(video)
+      paths[label].update(video_bytes=size, returns=out["returns"].tolist())
+      log(f"[viewer] returns {[round(r, 2) for r in out['returns'].tolist()]}"
+          f", depth video {size} bytes")
+      if not size > 0:
+        raise AssertionError("[viewer] empty video")
+    else:
+      paths[label]["env_steps_per_s"] = out["env_steps_per_s"]
+  return paths
+
+
+def phase_layer_33(obs, card, dev):
+  """The layer kernels at the 16-channel LocoTransformer's 33 tokens (the
+  forward's large instantiation): its tokenizer at the config's widths
+  with seeded random weights on phase 4's observations with eight rgb
+  frames of the same seed put before the depth, the forward and the
+  gradients at T33_BATCHES (`check_layer_case`); the forward, forward +
+  backward, plain and library times and bounds (`time_layer_shape`); row
+  2 at (1024, 17) timed again beside it on random tokens; the model's
+  pi_v fused against unfused (RGBD_PI_V_TOL), its launches counted."""
+  import torch
+  from vision4leg_torch.models.actor_critic import LocoTransformerActorCritic
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.starter.common import locotransformer_kwargs
+  env, _, params = build_env(CONFIG, dev)
+  kw = dict(locotransformer_kwargs(env, params),
+            visual_input_shape=(16, 64, 64))
+  net = LocoTransformerActorCritic(
+      **kw, generator=torch.Generator().manual_seed(16)).to(dev).eval()
+  gen = torch.Generator(device=dev).manual_seed(33)
+  p = env.cfg.proprio_dim
+  rgb = torch.rand(obs.shape[0], 12 * 64 * 64, generator=gen, device=dev)
+  x = torch.cat([obs[:, :p], rgb, obs[:, p:]], dim=-1)
+  with torch.no_grad():
+    tokens = net._tokens(x)
+    w0 = att.LayerWeights(*[t.detach() for t in
+                            att.weights_from_layer(net.pf_layers[0])])
+  if tokens.shape[1] != 33:
+    raise AssertionError(f"the 16-channel tokenizer gave {tokens.shape}")
+  errs = [check_layer_case(name, x_all[:B].contiguous(), w0, gen)
+          for name, x_all in (
+              ("rgbd tokens T=33->pf_layers.0", tokens),
+              ("randn T=33->pf_layers.0",
+               torch.randn(tokens.shape, generator=gen, device=dev)))
+          for B in T33_BATCHES]
+  before = (att.fused_transformer_layer.launches,
+            att.fused_transformer_layer_bwd.launches)
+  lib = library_layer(w0)
+  shapes = {f"{B}x33": time_layer_shape(tokens[:B].contiguous(), w0, lib,
+                                        gen, card)
+            for B in T33_BATCHES}
+  x17 = torch.randn(NUM_ENVS, 17, tokens.shape[-1], generator=gen,
+                    device=dev)
+  with torch.no_grad():
+    k17 = [time_ms(lambda: att.fused_transformer_layer(x17, w0))
+           for _ in range(2)]
+  log(f"transformer_layer at B={NUM_ENVS} T=17 beside T=33 on {card}: "
+      f"{k17[0]:.4f} / {k17[1]:.4f} ms (the small instantiation)")
+  att.fused_transformer_layer.launches, \
+      att.fused_transformer_layer_bwd.launches = before
+  with torch.no_grad():
+    att.fused_transformer_layer.launches = 0
+    (m_f, _, _), v_f = net.pi_v(x, fused=True)
+    torch.cuda.synchronize()
+    launches = {"transformer_layer": att.fused_transformer_layer.launches}
+    (m_p, _, _), v_p = net.pi_v(x, fused=False)
+  pi_err = max(float((m_f - m_p).abs().max()), float((v_f - v_p).abs().max()))
+  ok = all(_close(a, b, **RGBD_PI_V_TOL)[1] for a, b in ((m_f, m_p),
+                                                         (v_f, v_p)))
+  log(f"16-channel LocoTransformer pi_v at B={x.shape[0]} (33 tokens) on "
+      f"{card}: fused vs unfused max abs err {pi_err:.3e}; launches "
+      f"{launches}")
+  if not ok or launches["transformer_layer"] != 4:
+    raise AssertionError("[T=33] the 16-channel pi_v fused disagrees with "
+                         "unfused, or its launches are off")
+  return dict(max_abs_err=max(e for e, _ in errs),
+              bwd_max_abs_err=max(b for _, b in errs), shapes=shapes,
+              row2_1024x17_ms=k17, pi_v_max_abs_err=pi_err), launches
+
+
+def agent_collection(label, env, meta, params, card, wrap=None):
+  """One rollout of a PPOAgent's collector (the LocoTransformer of the
+  starter, fused layer on, seeded random weights) at NUM_ENVS envs, the
+  launch counts set to 0 just before and held after: the window once a
+  step on a flat terrain and never on a heightfield, the layer 4 a step
+  and 2 for the bootstrap; every output finite.  Returns the launches
+  (with the seconds), the rate, the collector state and the
+  trajectory."""
+  import torch
+  from vision4leg_torch.algo.agent import PPOAgent
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter import ppo_locotransformer as starter
+  cfg = common.ppo_config(params)
+  horizon = cfg.epoch_frames // NUM_ENVS
+  t = time.perf_counter()
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    agent = PPOAgent(
+        env=env, ac_module=starter.build_module(env, params), cfg=cfg,
+        num_envs=NUM_ENVS, seed=0, logger=None, save_dir=tmp,
+        obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"],
+        reward_scale=meta["reward_scale"], fused_attention=True,
+        fused_update=True, device=env.device)
+    torch.cuda.synchronize()
+    log(f"[{label}] PPOAgent at {NUM_ENVS} envs (init + init_collector): "
+        f"{time.perf_counter() - t:.2f}s")
+    pk.robot_window.launches = 0
+    att.fused_transformer_layer.launches = 0
+    att.fused_transformer_layer_bwd.launches = 0
+    t = time.perf_counter()
+    cs, traj, last_v = agent.rollout(agent.collector_state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+  launches = {"physics_window": pk.robot_window.launches,
+              "transformer_layer": att.fused_transformer_layer.launches}
+  want = {"physics_window": horizon * int(env.kernel_capable),
+          "transformer_layer": 4 * horizon + 2}
+  rate = horizon * NUM_ENVS / dt
+  log(f"[{label}] rollout: {horizon} steps x {NUM_ENVS} envs in {dt:.3f}s "
+      f"= {rate:.1f} env-steps/s on {card}; launches {launches}, expected "
+      f"{want}; terminals {int(traj.terminals.sum())}")
+  if launches != want or att.fused_transformer_layer_bwd.launches:
+    raise AssertionError(f"[{label}] launch counts {launches}")
+  for x in (traj.obs, traj.values, traj.log_probs, traj.rewards, last_v):
+    if not torch.isfinite(x).all():
+      raise AssertionError(f"[{label}] non-finite outputs")
+  return dict(launches, seconds=dt), rate, cs, traj
+
+
+def phase_terrains(card, dev):
+  """16-step collections at NUM_ENVS envs, fused layer on, of the hill
+  (config/rl/challenge/locotransformer/hill.json: random_hill on the
+  per-env engine) and of thin-goal with terrain_type multi_stairs and
+  random_blocks (the window)."""
+  out = {}
+  for label, config, overrides in (
+      ("hill collection", HILL_CONFIG, None),
+      ("multi_stairs collection", CONFIG, {"terrain_type": "multi_stairs"}),
+      ("random_blocks collection", CONFIG,
+       {"terrain_type": "random_blocks"})):
+    env, meta, params = build_env(config, dev, overrides)
+    out[label] = agent_collection(label, env, meta, params, card)[:2]
+    del env
+  return out
+
+
+def phase_trajectory_generator(card, dev):
+  """The trajectory-generator wrapper on a 16-step thin-goal collection
+  at NUM_ENVS envs (12 motor angles: diagonal_act off), the open-loop
+  trot at the env's control step, the LocoTransformer reading the phase's
+  (cos, sin) as two more proprio inputs (fused layer on): the window once
+  a step, the layer 4 a step and 2 for the bootstrap; the phase of every
+  env that no reset restarted at 16 steps of 2 pi f dt, every command
+  within the joint limits."""
+  import math
+
+  import torch
+  from vision4leg_torch.collector import rollout as rollout_lib
+  from vision4leg_torch.envs.trajectory_generator import (
+      OpenloopGaitGenerator, TrajectoryGeneratorWrapper)
+  from vision4leg_torch.models.actor_critic import LocoTransformerActorCritic
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.robots import a1_params as P
+  from vision4leg_torch.starter import common
+  env, meta, params = build_env(CONFIG, dev, {"diagonal_act": False})
+  dt_ctrl = env.cfg.time_step_s * env.cfg.num_action_repeat
+  tg = OpenloopGaitGenerator(control_dt=dt_ctrl)
+  wrapped = TrajectoryGeneratorWrapper(env, tg)
+  p = env.cfg.proprio_dim
+  net = LocoTransformerActorCritic(
+      **dict(common.locotransformer_kwargs(env, params),
+             state_input_shape=p + 2),
+      generator=torch.Generator().manual_seed(0)).to(dev).eval()
+  order = lambda x: torch.cat([x[:, :p], x[:, -2:], x[:, p:-2]], dim=-1)
+  gs = params["general_setting"]
+  horizon = common.ppo_config(params).epoch_frames // NUM_ENVS
+  rollout = rollout_lib.make_rollout_fn(
+      wrapped, lambda x: net.pi_v(order(x), fused=True),
+      lambda x: net.v(order(x), fused=True), horizon=horizon,
+      max_episode_frames=params["collector"]["max_episode_frames"],
+      discount=gs["discount"], proprio_dim=p, obs_norm=meta["obs_norm"],
+      action_low=wrapped.action_low, action_high=wrapped.action_high,
+      env_time_limit=meta["horizon"], reward_scale=meta["reward_scale"])
+  gen = torch.Generator(device=dev).manual_seed(0)
+  cs = rollout_lib.init_collector(wrapped, NUM_ENVS, gen)
+  pk.robot_window.launches = 0
+  att.fused_transformer_layer.launches = 0
+  att.fused_transformer_layer_bwd.launches = 0
+  t = time.perf_counter()
+  cs, traj, last_v = rollout(cs)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t
+  launches = {"physics_window": pk.robot_window.launches,
+              "transformer_layer": att.fused_transformer_layer.launches}
+  want = {"physics_window": horizon, "transformer_layer": 4 * horizon + 2}
+  ran = ~traj.terminals[..., 0].any(0)
+  phase = cs.env_states.tg.phase[ran].double()
+  expect = math.fmod(horizon * 2 * math.pi * tg.frequency_hz * dt_ctrl,
+                     2 * math.pi)
+  phase_err = float((phase - expect).abs().max()) if phase.numel() else 0.0
+  cmd = cs.env_states.env.last_action
+  lo, hi = (torch.tensor(a, dtype=torch.float32, device=dev)
+            for a in (P.JOINT_LOWER, P.JOINT_UPPER))
+  in_limits = bool(((cmd >= lo - 1e-6) & (cmd <= hi + 1e-6)).all())
+  log(f"[trajectory generator] {horizon} steps x {NUM_ENVS} envs in "
+      f"{dt:.3f}s = {horizon * NUM_ENVS / dt:.1f} env-steps/s on {card}; "
+      f"launches {launches}, expected {want}; obs width "
+      f"{traj.obs.shape[-1]} (env {env.obs_dim} + 2); {int(ran.sum())} envs "
+      f"never reset, their phase within {phase_err:.2e} of {expect:.6f}; "
+      f"commands within the joint limits: {in_limits}")
+  if (launches != want or att.fused_transformer_layer_bwd.launches
+      or traj.obs.shape[-1] != env.obs_dim + 2 or not in_limits
+      or not int(ran.sum()) or phase_err > 1e-4):
+    raise AssertionError("[trajectory generator] collection check failed")
+  for x in (traj.obs, traj.values, traj.log_probs, traj.rewards, last_v):
+    if not torch.isfinite(x).all():
+      raise AssertionError("[trajectory generator] non-finite outputs")
+  return dict(launches, seconds=dt), horizon * NUM_ENVS / dt
 
 
 def main() -> int:
@@ -2675,6 +3100,10 @@ def main() -> int:
       env, params), generator=torch.Generator().manual_seed(0)).to(dev)
   layer, layer_bwd, layer_extra = phase_layer(net, vision_net, traj.obs[0],
                                               card)
+
+  # --- 29. the layer kernels at 33 tokens (16-channel LocoTransformer) ----
+  t33, t33_launches = phase_layer_33(traj.obs[0], card, dev)
+  torch.cuda.empty_cache()
   tf32_obs = traj.obs[0].clone()
   update_obs = traj.obs[:4].clone()
   del cs, traj, last_v, vision_net
@@ -2849,7 +3278,25 @@ def main() -> int:
       horizon, card, dev)
   torch.cuda.empty_cache()
 
-  # --- 27. results ----------------------------------------------------------
+  # --- 27. a policy the JAX package trained, on the port ------------------
+  jax_run, jax_run_launches, jax_run_errs, run_tmp = phase_jax_run(card,
+                                                                   dev)
+  torch.cuda.empty_cache()
+
+  # --- 28. the viewers on its copy, the env viewer ------------------------
+  viewers = phase_viewers(run_tmp, card, dev)
+  shutil.rmtree(run_tmp)
+  torch.cuda.empty_cache()
+
+  # --- 30. random_hill, multi_stairs and random_blocks ---------------------
+  terrains = phase_terrains(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 31. the trajectory-generator wrapper --------------------------------
+  tg_launches, tg_rate = phase_trajectory_generator(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 32. results ----------------------------------------------------------
   # launches: the sum over the paths that run a kernel, each read just
   # after it was driven with the counts at 0 (by path beside it)
   by_path = {k: {n: v[n] for n in ("physics_window", "physics_window_settle",
@@ -2866,6 +3313,18 @@ def main() -> int:
       "physics_window", "transformer_layer")} for k, v in bf16.items()})
   by_path.update({k: {n: v[n] for n in v if n.startswith("physics_window")}
                   for k, (v, _) in collections.items()})
+  by_path[f"JAX-trained {JAX_RUN_ID} eval ({JAX_EVAL_ENVS} x "
+          f"{JAX_EVAL_STEPS})"] = jax_run_launches
+  by_path.update({f"{k} ({JAX_RUN_ID})" if k == "viewer" else k: {
+      n: v[n] for n in ("physics_window", "transformer_layer")}
+      for k, v in viewers.items()})
+  by_path.update({k: {n: v[n] for n in ("physics_window",
+                                        "transformer_layer")}
+                  for k, (v, _) in terrains.items()})
+  by_path["trajectory-generator collection"] = {
+      n: tg_launches[n] for n in ("physics_window", "transformer_layer")}
+  by_path["16-channel LocoTransformer pi_v (T 33)"] = dict(
+      physics_window=0, **t33_launches)
   total = lambda name: sum(v.get(name, 0) for v in by_path.values())
   row1_paths = {k: v["physics_window"] for k, v in by_path.items()
                 if "MPC" not in k}
@@ -2876,6 +3335,10 @@ def main() -> int:
   layer_paths = lambda name: {k: v[name] for k, v in by_path.items()
                               if name in v}
   minibatch = {k: v["minibatch"] for k, v in paths.items()}
+  layer["max_abs_err"] = max(layer["max_abs_err"], jax_run_errs[0],
+                             t33["max_abs_err"])
+  layer_bwd["max_abs_err"] = max(layer_bwd["max_abs_err"], jax_run_errs[1],
+                                 t33["bwd_max_abs_err"])
   kernels = [dict(
       name="physics_window", route="cuda",
       source="vision4leg_torch/ops/csrc/physics_window.cu",
@@ -2885,12 +3348,15 @@ def main() -> int:
              "thin-wide, interpolation and fixed-delay, stairs and "
              "chair_desk, thin-random-shape, sim2sim, float32 and bf16, "
              "action-filter, sphere-terrain (8 of 50 spheres an env), "
-             "random_dir + rotate_sensor collection) and 8 (eval, the "
-             "sim2sim transfer env's among them); the MPC resets' settles "
+             "random_dir + rotate_sensor, multi_stairs, random_blocks and "
+             "trajectory-generator collections), 32 (the JAX-trained "
+             f"{JAX_RUN_ID} eval), 2 (its viewer), 1 (the env viewer) and "
+             "8 (eval, the sim2sim transfer env's among them); the MPC "
+             "resets' settles "
              "of settle_steps substeps at 1024 envs, the partial resets' "
              "envs, 8 (eval) and 1 (the demo's 300); never on a "
-             "heightfield terrain (mountain, thin-heightfield, state-only, "
-             "MPC heightfield: 0)",
+             "heightfield terrain (mountain, hill, thin-heightfield, "
+             "state-only, MPC heightfield: 0)",
       max_abs_err=max_err, **window), dict(
       name="transformer_layer", route="cuda",
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
@@ -2901,17 +3367,22 @@ def main() -> int:
                     "runs the unfused layer, as the JAX layer routes a "
                     "non-float32 input (vision4leg_tpu/models/base.py:"
                     "233-238); the float32 collection beside it launches",
-      shapes=f"(B, T, 64), F 256: T 17 at B 1024, 8 (eval) and the "
-             f"update's minibatch {minibatch}; T 16 (vision-only) at the "
-             f"same; checked also at B 1000 and 512 (T 17), 512 (T 16)",
-      **layer), dict(
+      shapes=f"(B, T, 64), F 256: T 17 at B 1024, 8 (eval), 32 (the "
+             f"JAX-trained eval) and the update's minibatch {minibatch}; T "
+             f"16 (vision-only) at the same; T 33 (the 16-channel "
+             f"LocoTransformer, the large instantiation) at B 1024; checked "
+             f"also at B 1000 and 512 (T 17), 512 (T 16), 8 (T 33)",
+      at_33_tokens=t33["shapes"], **layer), dict(
       name="transformer_layer_bwd", route="cuda",
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
       replaces="vision4leg_tpu/ops/attention.py:149 (_ad_bwd :178)",
       launches=total("transformer_layer_bwd"),
       launches_by_path=layer_paths("transformer_layer_bwd"),
       shapes=f"the update's minibatch {minibatch} at T 17 and 16; checked "
-             f"also at B 1000, 512 and 8",
+             f"also at B 1000, 512 and 8, and at T 33 at B 1024 and 8",
+      at_33_tokens={k: {n: v[n] for n in ("ad_ms", "plain_ad_ms",
+                                          "library_ad_ms", "ad_bound_ms")}
+                    for k, v in t33["shapes"].items()},
       **layer_bwd), dict(
       name="physics_window_hybrid", route="cuda",
       source="vision4leg_torch/ops/csrc/physics_window.cu",
@@ -2957,7 +3428,16 @@ def main() -> int:
                     "mpc_walk_min_progress_m": walk_dx,
                     "fused_update": fused_update,
                     "tf32_pi_v_max_abs_diff": tf32,
-                    "transformer_layer": layer_extra}), flush=True)
+                    "transformer_layer": layer_extra,
+                    "layer_33_tokens": t33,
+                    "jax_trained_eval": jax_run,
+                    "viewers": viewers,
+                    "terrain_collections": {
+                        k: dict(v, env_steps_per_s=r)
+                        for k, (v, r) in terrains.items()},
+                    "trajectory_generator_collection": dict(
+                        tg_launches, env_steps_per_s=tg_rate)}),
+        flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

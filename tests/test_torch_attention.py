@@ -186,8 +186,8 @@ def test_fused_refuses_what_the_kernel_does_not_take():
   w = att.weights_from_layer(TransformerEncoderLayer(16, 1, 32))
   w = att.LayerWeights(*[t.detach() for t in w])
   assert att.check_inputs(x, w) == (2, 5, 16, 32)
-  with pytest.raises(ValueError, match="T <= 32"):
-    att.check_inputs(torch.zeros(2, 33, 16), w)
+  with pytest.raises(ValueError, match="T <= 48"):
+    att.check_inputs(torch.zeros(2, 49, 16), w)
   with pytest.raises(ValueError, match="B >= 1"):
     att.check_inputs(torch.zeros(0, 5, 16), w)
   with pytest.raises(ValueError, match="not contiguous"):

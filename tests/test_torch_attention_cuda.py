@@ -41,7 +41,10 @@ def _weights(D, F, dev, seed=0):
 # SMs)): B = 7, 8, 9 around G = 8, and, on a 132-SM card, 1023 (128 tiles,
 # the last with 7 samples) and 1057 (G = 8 capped: 133 tiles, the last
 # with one).  The training paths' other shapes: B = 512 (G = 4), and the
-# vision-only model's T = 16 (128 rows a tile of 8, padded to 144).
+# vision-only model's T = 16 (128 rows a tile of 8, padded to 144).  The
+# large attention instantiation (T > 32): the 16-channel LocoTransformer's
+# T = 33 (tiles of G <= 4) at the rollout's, eval's and a ragged batch,
+# and T = 48 at the largest D and F.
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,D,F", [(1024, 17, 64, 256), (1000, 17, 64, 256),
                                      (8, 17, 64, 256), (1, 17, 64, 256),
@@ -50,7 +53,10 @@ def _weights(D, F, dev, seed=0):
                                      (1023, 17, 64, 256),
                                      (1057, 17, 64, 256),
                                      (512, 17, 64, 256), (512, 16, 64, 256),
-                                     (1024, 16, 64, 256), (8, 16, 64, 256)])
+                                     (1024, 16, 64, 256), (8, 16, 64, 256),
+                                     (1024, 33, 64, 256), (8, 33, 64, 256),
+                                     (1001, 33, 64, 256),
+                                     (7, 48, 128, 512)])
 def test_kernel_matches_plain(cuda, B, T, D, F):
   w = _weights(D, F, cuda, seed=B)
   x = torch.randn(B, T, D, device=cuda, generator=torch.Generator(
@@ -98,10 +104,25 @@ def test_kernel_gradient_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1024, 8])
+def test_kernel_gradient_matches_plain_at_33_tokens(cuda, B):
+  """As above at the 16-channel LocoTransformer's T = 33 (the forward's
+  large attention instantiation), at the update's and eval's batch."""
+  w = _weights(64, 256, cuda, seed=33)
+  gen = torch.Generator(device=cuda).manual_seed(33)
+  x = torch.randn(B, 33, 64, device=cuda, generator=gen)
+  g = torch.randn(B, 33, 64, device=cuda, generator=gen)
+  before = att.fused_transformer_layer_bwd.launches
+  ok, report = att.compare_grads_with_plain(x, w, g)
+  assert att.fused_transformer_layer_bwd.launches == before + 1
+  assert ok, report
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_bad_inputs(cuda):
   w = _weights(64, 256, cuda)
-  with pytest.raises(ValueError, match="T <= 32"):
-    att.fused_transformer_layer(torch.zeros(2, 33, 64, device=cuda), w)
+  with pytest.raises(ValueError, match="T <= 48"):
+    att.fused_transformer_layer(torch.zeros(2, 49, 64, device=cuda), w)
   with pytest.raises(TypeError, match="float32"):
     att.fused_transformer_layer(torch.zeros(2, 17, 64, device=cuda,
                                             dtype=torch.float64), w)
@@ -113,7 +134,8 @@ def test_kernel_rejects_bad_inputs(cuda):
 BWD_SHAPES = [(1024, 17, 64, 256), (1000, 17, 64, 256), (8, 17, 64, 256),
               (1, 17, 64, 256), (5, 32, 128, 512), (3, 7, 24, 40),
               (512, 17, 64, 256), (512, 16, 64, 256), (1024, 16, 64, 256),
-              (8, 16, 64, 256)]
+              (8, 16, 64, 256), (1024, 33, 64, 256), (8, 33, 64, 256),
+              (5, 40, 64, 256)]
 
 
 @pytest.mark.cuda

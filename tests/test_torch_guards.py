@@ -15,7 +15,8 @@ import importlib, importlib.util, pkgutil, sys
 
 class Block:
   def find_spec(self, name, path=None, target=None):
-    if name.split(".")[0] in ("jax", "jaxlib", "flax", "vision4leg_tpu"):
+    if name.split(".")[0] in ("jax", "jaxlib", "flax", "vision4leg_tpu",
+                              "msgpack"):
       raise ImportError(f"blocked import of {name}")
     return None
 
@@ -44,7 +45,18 @@ for n in ("vision4leg_torch.algo.agent",
           "vision4leg_torch.mpc.robot_params",
           "vision4leg_torch.mpc.static_gait",
           "vision4leg_torch.mpc.native.mpc_osqp",
-          "vision4leg_torch.robots.pose_utils"):
+          "vision4leg_torch.robots.pose_utils",
+          "vision4leg_torch.utils.flax_msgpack",
+          "vision4leg_torch.envs.trajectory_generator",
+          "vision4leg_torch.starter.viewer_common",
+          "vision4leg_torch.starter.env_viewer",
+          "vision4leg_torch.starter.locotransformer_viewer",
+          "vision4leg_torch.starter.locotransformer_vision_only_viewer",
+          "vision4leg_torch.starter.nature_cnn_viewer",
+          "vision4leg_torch.starter.nature_cnn_vision_only_viewer",
+          "vision4leg_torch.starter.state_policy_viewer",
+          "vision4leg_torch.starter.total_randomize_statistics",
+          "vision4leg_torch.starter.convert_jax_run"):
   assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -80,6 +92,25 @@ def test_default_device_entry_points_raise_without_a_card():
     demo.build_env("a1")
   with pytest.raises(RuntimeError, match="no CUDA device"):
     demo.main(["--robot", "a1", "--max_time", "0.01"])
+  # the viewers, the sweep and the converter (their flags name a run that
+  # need not exist: the device is resolved first)
+  from vision4leg_torch.starter import (convert_jax_run, env_viewer,
+                                        locotransformer_viewer,
+                                        total_randomize_statistics,
+                                        viewer_common)
+  config = os.path.join(ROOT, "config/rl/static/locotransformer/"
+                        "thin-goal.json")
+  run = ["--config", config, "--id", "none", "--log_dir", ROOT]
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    viewer_common.run_viewer(locotransformer_viewer._build_module, run)
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    total_randomize_statistics.main(run)
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    env_viewer.main(["--config", config, "--steps", "1"])
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    convert_jax_run.main([
+        "--run", os.path.join(ROOT, "runs/mmdr_moving_10M/A1MoveGround/0"),
+        "--out", os.path.join(ROOT, "_archive", "unused")])
   from vision4leg_torch.algo.agent import PPOAgent
   from vision4leg_torch.algo.ppo import PPOConfig
   env, _ = get_env("A1MoveGround", {"env_build": {}}, device="cpu")

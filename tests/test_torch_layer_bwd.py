@@ -136,8 +136,8 @@ def test_backward_checks_reject_what_the_kernel_cannot_take():
     att._launch_bwd(res, g[:1], w, launch=never)
   with pytest.raises(ValueError, match="residual h"):
     att._launch_bwd(res._replace(h=res.h.clone()), g, w, launch=never)
-  with pytest.raises(ValueError, match="T <= 32"):
-    att._launch_bwd(res._replace(x=torch.zeros(2, 33, 16)), g, w,
+  with pytest.raises(ValueError, match="T <= 48"):
+    att._launch_bwd(res._replace(x=torch.zeros(2, 49, 16)), g, w,
                     launch=never)
 
 
@@ -193,3 +193,15 @@ def test_key_bias_sum_is_the_exact_sum_of_dk_rows(seed):
                              ref.numpy(), atol=1e-12, rtol=0)
   naive = rows.dqkv[..., D:2 * D].sum(1).double()
   assert float((naive - ref).abs().max()) > 100 * 1e-12
+
+
+def test_backward_refuses_a_shape_past_shared_memory():
+  """T = 48 at D = 128, F = 512 is a forward the kernel takes, but one
+  backward block would need 266.5 KB of shared memory: `_launch_bwd`
+  raises before any launch; T = 33 at the main widths fits (94.8 KB)."""
+  assert att.bwd_smem_bytes(33, 64, 256) == 94776
+  assert att.bwd_smem_bytes(48, 128, 512) > att.SMEM_MAX
+  x, w, g, _ = _case(1, 48, 128, 512, torch.float32)
+  _, res = att._launch(x, w, launch=lambda *a: 0, save=True)
+  with pytest.raises(ValueError, match="shared memory"):
+    att._launch_bwd(res, g, w, launch=lambda *a: pytest.fail("launched"))

@@ -53,7 +53,8 @@ def _rows(lib, x, w, g):
 
 @pytest.mark.parametrize("B,T,D,F", [(3, 17, 64, 256), (2, 5, 16, 40),
                                      (1, 1, 8, 8), (2, 32, 128, 512),
-                                     (2, 18, 33, 70), (3, 16, 64, 256)])
+                                     (2, 18, 33, 70), (3, 16, 64, 256),
+                                     (3, 33, 64, 256), (2, 48, 64, 256)])
 def test_backward_source_matches_plain_on_host(host, B, T, D, F):
   x, w, g = _case(B, T, D, F)
   before = (att.fused_transformer_layer.launches,

@@ -82,7 +82,11 @@ extern "C" int transformer_layer_launch(
   std::vector<float> smem(pl.floats + guard);
   for (int tile = 0; tile < pl.tiles; ++tile) {
     std::fill(smem.begin(), smem.end(), NAN);
-    tl_tile(a, pl, smem.data(), tile, 0, 0);
+    // the instantiation the CUDA launch takes at this T
+    if (T <= 32)
+      tl_tile<TL_ATTN_SMALL>(a, pl, smem.data(), tile, 0, 0);
+    else
+      tl_tile<TL_ATTN_LARGE>(a, pl, smem.data(), tile, 0, 0);
     for (int g = pl.floats; g < pl.floats + guard; ++g)
       if (!std::isnan(smem[g])) return 1;
   }
@@ -184,11 +188,14 @@ def _case(B, T, D, F):
 
 
 # (9, 17, 64, 256): two tiles of G = 8 samples, the second with one; (9,
-# 16, 64, 256) the same at the vision-only model's 16 tokens
+# 16, 64, 256) the same at the vision-only model's 16 tokens; (9, 33, 64,
+# 256) three tiles of G = 4 at the 16-channel LocoTransformer's 33 tokens
+# (the large attention instantiation), (2, 48, 128, 512) its largest shape
 @pytest.mark.parametrize("B,T,D,F", [(3, 17, 64, 256), (2, 5, 16, 40),
                                      (1, 1, 8, 8), (2, 32, 128, 512),
                                      (2, 18, 33, 70), (9, 17, 64, 256),
-                                     (9, 16, 64, 256)])
+                                     (9, 16, 64, 256), (9, 33, 64, 256),
+                                     (2, 48, 128, 512), (3, 41, 40, 72)])
 def test_layer_source_matches_plain_on_host(host_launch, B, T, D, F):
   x, w = _case(B, T, D, F)
   before = att.fused_transformer_layer.launches
@@ -204,9 +211,12 @@ def test_host_tiles_are_ragged(host):
   D = 128 takes one sample a tile (the shared memory caps G)."""
   assert host.transformer_layer_host_tile_samples(9, 17, 64, 256) == 8
   assert host.transformer_layer_host_tile_samples(3, 32, 128, 512) == 1
+  assert host.transformer_layer_host_tile_samples(9, 33, 64, 256) == 4
+  assert host.transformer_layer_host_tile_samples(3, 48, 128, 512) == 1
 
 
-@pytest.mark.parametrize("B,T,D,F", [(8, 17, 64, 256), (9, 17, 64, 256)])
+@pytest.mark.parametrize("B,T,D,F", [(8, 17, 64, 256), (9, 17, 64, 256),
+                                     (5, 33, 64, 256)])
 def test_layer_source_matches_jax_on_host(host_launch, B, T, D, F):
   """The same numpy inputs through the JAX package's fused layer (its
   plain math off the TPU) and through the host build of the kernel."""
@@ -219,7 +229,8 @@ def test_layer_source_matches_jax_on_host(host_launch, B, T, D, F):
                              rtol=1e-4)
 
 
-@pytest.mark.parametrize("B,T,D,F", [(9, 17, 64, 256), (2, 18, 33, 70)])
+@pytest.mark.parametrize("B,T,D,F", [(9, 17, 64, 256), (2, 18, 33, 70),
+                                     (5, 33, 64, 256)])
 def test_layer_source_warp_order(host, B, T, D, F):
   """The warps of every phase in the opposite order, on NaN-filled shared
   memory with its guard band checked: the same bits, in both modes (a

@@ -125,6 +125,12 @@ def test_param_labels_split_as_the_jax_learner(pair):
 
 
 def test_rgbd_is_refused_loudly():
-  with pytest.raises(NotImplementedError, match="rgbd"):
+  """The tokenizer takes depth (4), rgb (12) and rgbd (16) channels and
+  refuses any other count; the rgb models are held in
+  tests/test_torch_rgb_models.py."""
+  with pytest.raises(ValueError, match="rgbd"):
     VisionOnlyTransformerActorCritic(
-        **{**WIDTHS, "visual_input_shape": (16, 64, 64)})
+        **{**WIDTHS, "visual_input_shape": (8, 64, 64)})
+  net = VisionOnlyTransformerActorCritic(
+      **{**WIDTHS, "visual_input_shape": (16, 64, 64)})
+  assert net.encoder.per_modal_tokens == 16

@@ -15,17 +15,18 @@ import os
 import os.path as osp
 import time
 import warnings
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from vision4leg_torch import resolve_device
+from vision4leg_torch import convert, resolve_device
 from vision4leg_torch.algo.ppo import PPOConfig, PPOLearner
 from vision4leg_torch.algo.on_policy_base import AdamState
 from vision4leg_torch.collector import rollout as rollout_lib
 from vision4leg_torch.data import normalizer as norm
 from vision4leg_torch.envs import wrappers
+from vision4leg_torch.utils import flax_msgpack
 
 
 def _flatten(x, prefix: str, out: Dict[str, torch.Tensor]):
@@ -41,9 +42,17 @@ def _flatten(x, prefix: str, out: Dict[str, torch.Tensor]):
   return out
 
 
-def _unflatten(template, flat: Dict[str, torch.Tensor], prefix: str):
-  """`template` with every tensor replaced by flat[its path]."""
+def _unflatten(template, flat: Dict[str, torch.Tensor], prefix: str,
+               grafted: List[str]):
+  """`template` with every tensor replaced by flat[its path].  A path the
+  checkpoint lacks (it predates the field) keeps the template's tensor
+  and is appended to `grafted`, as the JAX agent grafts an old checkpoint
+  onto its template (vision4leg_tpu/algo/agent.py:476-502); a path it has
+  must match the template's shape and dtype."""
   if isinstance(template, torch.Tensor):
+    if prefix not in flat:
+      grafted.append(prefix)
+      return template
     x = flat[prefix]
     if x.shape != template.shape or x.dtype != template.dtype:
       raise ValueError(f"checkpoint: {prefix} is {x.dtype}{tuple(x.shape)}, "
@@ -52,7 +61,7 @@ def _unflatten(template, flat: Dict[str, torch.Tensor], prefix: str):
   if dataclasses.is_dataclass(template):
     return dataclasses.replace(template, **{
         f.name: _unflatten(getattr(template, f.name), flat,
-                           f"{prefix}.{f.name}")
+                           f"{prefix}.{f.name}", grafted)
         for f in dataclasses.fields(template)})
   return template
 
@@ -333,14 +342,20 @@ class PPOAgent:
 
   def _warm_start_from_snapshot(self) -> int:
     """Fallback resume when the full checkpoint is gone but the best
-    snapshot + log.csv survived.  Restores params + obs normalizer from
-    model_pf_best.pt and picks epoch / total_frames / best_eval back up
-    from log.csv; optimizer and env states restart fresh (a warm start,
-    not a bit-exact resume)."""
+    snapshot + log.csv survived, e.g. a copy of a run the JAX package
+    trained and committed (full checkpoints are too large to commit;
+    snapshots are not).  Restores params + obs normalizer from
+    model_pf_best.pt or, where there is none, from the JAX package's
+    model_pf_best.flax (`utils.flax_msgpack`, no JAX needed), and picks
+    epoch / total_frames / best_eval back up from log.csv; optimizer and
+    env states restart fresh (a warm start, not a bit-exact resume)."""
     pf = osp.join(self.save_dir, "model_pf_best.pt")
+    pf_flax = osp.join(self.save_dir, "model_pf_best.flax")
     nz = osp.join(self.save_dir, "_obs_normalizer_best.npz")
     log_csv = osp.join(osp.dirname(osp.abspath(self.save_dir)), "log.csv")
-    if not (osp.exists(pf) and osp.exists(nz) and osp.exists(log_csv)):
+    from_flax = not osp.exists(pf) and osp.exists(pf_flax)
+    if not ((osp.exists(pf) or from_flax) and osp.exists(nz)
+            and osp.exists(log_csv)):
       return 0
     with open(log_csv) as f:
       header = f.readline().rstrip("\n").split(",")
@@ -365,20 +380,22 @@ class PPOAgent:
             pass
     if last_epoch < 0:
       return 0
-    self.module.load_state_dict(torch.load(pf, map_location=self.device,
-                                           weights_only=True))
-    d = np.load(nz)
-    cs = self.collector_state
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=self.device)
-    self.collector_state = cs.replace(normalizer=norm.NormalizerState(
-        mean=t(d["mean"]), var=t(d["var"]), count=t(d["count"])))
+    if from_flax:
+      sd = convert.params_from_flax(flax_msgpack.read_flax_snapshot(pf_flax))
+    else:
+      sd = torch.load(pf, map_location=self.device, weights_only=True)
+    self.module.load_state_dict(sd)
+    self.collector_state = self.collector_state.replace(
+        normalizer=flax_msgpack.read_normalizer(nz, self.device))
     self.total_frames = total_frames
     if np.isfinite(best):
       self.best_eval = float(best)
-    self.logger.log(
-        f"warm start from best snapshot: epoch {last_epoch + 1}, "
-        f"{total_frames} frames, best_eval {self.best_eval:.1f} "
-        "(no full checkpoint found; optimizer/env state reinitialized)")
+    self._log(
+        f"warm start from best snapshot "
+        f"({osp.basename(pf_flax if from_flax else pf)}): epoch "
+        f"{last_epoch + 1}, {total_frames} frames, best_eval "
+        f"{self.best_eval:.1f} (no full checkpoint found; optimizer/env "
+        "state reinitialized)")
     return last_epoch + 1
 
   def restore_checkpoint(self) -> int:
@@ -402,7 +419,11 @@ class PPOAgent:
         pf_opt=opt(ckpt["pf_opt"]), vf_opt=opt(ckpt["vf_opt"]),
         epoch=ckpt["train_epoch"])
     gens = ckpt["generators"]
-    cs = _unflatten(self.collector_state, ckpt["collector"], "cs")
+    grafted: List[str] = []
+    cs = _unflatten(self.collector_state, ckpt["collector"], "cs", grafted)
+    if grafted:
+      self._log(f"checkpoint predates {len(grafted)} collector field(s); "
+                f"kept their fresh values: {', '.join(grafted)}")
     cs.gen.set_state(gens["collect"].cpu())
     self.update_gen.set_state(gens["update"].cpu())
     self.eval_gen.set_state(gens["eval"].cpu())

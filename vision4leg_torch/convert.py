@@ -150,16 +150,44 @@ def _nature_from_flax(sd, prefix, p):
     _conv(sd, f"{prefix}.convs.{i}", p[f"Conv_{i}"])
 
 
+def encoder_channels(enc: Mapping) -> int:
+  """The image channels of a flax LocoTransformerEncoder or
+  VisionTokenEncoder, told by its modules: two Nature CNNs are rgbd (16:
+  NatureEncoder_0 and Conv_0 the rgb modality, created first, _1 the
+  depth, JAX base.py:158-165 and 471-476); one is depth (4) or rgb (12)
+  by its first convolution's input channels.  Raises on another layout."""
+  natures = sorted(k for k in enc if k.startswith("NatureEncoder_"))
+  convs = sorted(k for k in enc if k.startswith("Conv_"))
+  first_in = np.shape(enc["NatureEncoder_0"]["Conv_0"]["kernel"])[2] \
+      if natures else None
+  if natures == ["NatureEncoder_0"] and convs == ["Conv_0"] \
+     and first_in in (4, 12):
+    return int(first_in)
+  if natures == ["NatureEncoder_0", "NatureEncoder_1"] \
+     and convs == ["Conv_0", "Conv_1"] and first_in == 12 \
+     and np.shape(enc["NatureEncoder_1"]["Conv_0"]["kernel"])[2] == 4:
+    return 16
+  raise ValueError(f"flax encoder: unknown tokenizer layout "
+                   f"{sorted(enc)} (first convolution's input channels "
+                   f"{first_in})")
+
+
 def encoder_from_flax(enc: Mapping) -> Dict[str, torch.Tensor]:
   """state_dict of models.base.LocoTransformerEncoder, or of
   VisionTokenEncoder when the flax encoder has no proprio MLP, from the
-  flax encoder's params pulled to numpy."""
+  flax encoder's params pulled to numpy; 4, 12 or 16 channels
+  (`encoder_channels`), rgb into `rgb_nature`/`rgb_token_conv` and depth
+  into `nature`/`token_conv`."""
   sd: Dict[str, torch.Tensor] = {}
   if "MLPBase_0" in enc:
     _mlp(sd, "state_mlp.layers", enc["MLPBase_0"])
     _dense(sd, "state_proj", enc["RLProjection_0"]["Dense_0"])
-  _nature_from_flax(sd, "nature", enc["NatureEncoder_0"])
-  _conv(sd, "token_conv", enc["Conv_0"])
+  channels = encoder_channels(enc)
+  names = {4: ["nature"], 12: ["rgb_nature"],
+           16: ["rgb_nature", "nature"]}[channels]
+  for i, name in enumerate(names):
+    _nature_from_flax(sd, name, enc[f"NatureEncoder_{i}"])
+    _conv(sd, name.replace("nature", "token_conv"), enc[f"Conv_{i}"])
   return sd
 
 

@@ -141,8 +141,10 @@ class LocoTransformerActorCritic(nn.Module):
     self.vf_layers = nn.ModuleList(
         TransformerEncoderLayer(token_dim, nh, ff)
         for nh, ff in transformer_params)
-    self.pf_mlp = MLPHead(2 * token_dim, append_hidden_shapes, action_dim)
-    self.vf_mlp = MLPHead(2 * token_dim, append_hidden_shapes, 1)
+    self.n_modal = 2 if visual_input_shape[0] == 16 else 1
+    width = (1 + self.n_modal) * token_dim
+    self.pf_mlp = MLPHead(width, append_hidden_shapes, action_dim)
+    self.vf_mlp = MLPHead(width, append_hidden_shapes, 1)
     self.logstd = nn.Parameter(torch.full((action_dim,), math.log(log_init)))
     if generator is not None:
       self.init_weights(generator)
@@ -162,11 +164,14 @@ class LocoTransformerActorCritic(nn.Module):
     return self.encoder(visual_x, state_x)
 
   def _pool(self, tokens):
-    """State token + mean (or, with max_pool, max) of the depth tokens
-    (nets.py:1014-1030)."""
-    depth = tokens[:, 1:]
-    pooled = depth.amax(dim=1) if self.max_pool else depth.mean(dim=1)
-    return torch.cat([tokens[:, 0], pooled], dim=-1)
+    """State token + mean (or, with max_pool, max) of each modality's
+    tokens (nets.py:1014-1030)."""
+    pm = self.encoder.per_modal_tokens
+    pool = ((lambda t: t.amax(dim=1)) if self.max_pool
+            else (lambda t: t.mean(dim=1)))
+    return torch.cat([tokens[:, 0]] + [
+        pool(tokens[:, 1 + i * pm: 1 + (i + 1) * pm])
+        for i in range(self.n_modal)], dim=-1)
 
   def _head(self, mean):
     return gaussian_head(self.logstd, mean)
@@ -202,11 +207,14 @@ class LocoTransformerActorCritic(nn.Module):
 class VisionOnlyTransformerActorCritic(nn.Module):
   """ppo_locotransformer_vision_only (the JAX package's
   VisionOnlyTransformerActorCritic): the transformer stacks run over the
-  16 depth tokens of VisionTokenEncoder alone; the proprio head of the
-  observation (empty on the vision-only MPC env) is ignored.  Each stack's
-  output is pooled over tokens [0, 1 + per_modal_tokens) as the reference
-  slices it (nets.py:884-901), which on one modality's 16 tokens is all of
-  them.  encoder_hidden_shapes is accepted for the config's sake: the
+  tokens of VisionTokenEncoder alone (16, or 32 on rgbd: depth then rgb);
+  the proprio head of the observation (empty on the vision-only MPC env)
+  is ignored.  Each stack's output is pooled over tokens [0, 1 +
+  per_modal_tokens) as the reference slices it (nets.py:884-901), which on
+  one modality's 16 tokens is all of them and on rgbd's 32 the 16 depth
+  tokens and the first rgb one (the reference's own off-by-one), and on
+  rgbd also over [per_modal_tokens, 2 per_modal_tokens).
+  encoder_hidden_shapes is accepted for the config's sake: the
   vision-only encoder has no proprio MLP."""
 
   def __init__(self, action_dim: int, state_input_shape: int,
@@ -219,12 +227,6 @@ class VisionOnlyTransformerActorCritic(nn.Module):
                generator: torch.Generator | None = None):
     super().__init__()
     del encoder_hidden_shapes
-    if visual_input_shape[0] != 4:
-      raise NotImplementedError(
-          f"the vision-only model takes 4 depth frames, got "
-          f"{visual_input_shape[0]} channels: 16 is rgbd, which the port's "
-          "env rejects (envs/env.py), and the rgb modalities are ROADMAP "
-          "queue 1 item 4")
     self.state_input_shape = state_input_shape
     self.max_pool = max_pool
     self.visual_input_shape = tuple(visual_input_shape)
@@ -235,8 +237,10 @@ class VisionOnlyTransformerActorCritic(nn.Module):
     self.vf_layers = nn.ModuleList(
         TransformerEncoderLayer(token_dim, nh, ff)
         for nh, ff in transformer_params)
-    self.pf_mlp = MLPHead(token_dim, append_hidden_shapes, action_dim)
-    self.vf_mlp = MLPHead(token_dim, append_hidden_shapes, 1)
+    self.rgbd = visual_input_shape[0] == 16
+    width = (2 if self.rgbd else 1) * token_dim
+    self.pf_mlp = MLPHead(width, append_hidden_shapes, action_dim)
+    self.vf_mlp = MLPHead(width, append_hidden_shapes, 1)
     self.logstd = nn.Parameter(torch.full((action_dim,), math.log(log_init)))
     if generator is not None:
       self.init_weights(generator)
@@ -257,8 +261,13 @@ class VisionOnlyTransformerActorCritic(nn.Module):
   def _stack(self, t, layers, mlp, fused):
     for layer in layers:
       t = layer(t, fused=fused)
-    t = t[:, :1 + self.encoder.per_modal_tokens]
-    return mlp(t.amax(dim=1) if self.max_pool else t.mean(dim=1))
+    pm = self.encoder.per_modal_tokens
+    pool = ((lambda z: z.amax(dim=1)) if self.max_pool
+            else (lambda z: z.mean(dim=1)))
+    outs = [pool(t[:, :1 + pm])]
+    if self.rgbd:
+      outs.append(pool(t[:, pm:2 * pm]))
+    return mlp(torch.cat(outs, dim=-1))
 
   def pi(self, x, fused: bool = False):
     """-> (mean, std, logstd); `fused` as in LocoTransformerActorCritic."""

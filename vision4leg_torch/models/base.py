@@ -99,63 +99,102 @@ class NatureFuseEncoder(nn.Module):
     return torch.cat([v, self.state_mlp(state_x)], dim=-1)
 
 
-class LocoTransformerEncoder(nn.Module):
-  """Tokenizer (base.py:497-627) for one depth modality: a projected
-  proprio token, then the 16 spatial tokens of NatureEncoder -> 1x1 conv.
-  Output (B, 17, token_dim)."""
+def modality_slices(in_channels: int):
+  """The channel slices of the image's modalities, rgb first: rgb is
+  channels 0..11 (four rgb frames) and depth the last four (JAX
+  base.py:158-165); 4 channels are depth alone, 12 rgb alone."""
+  if in_channels not in (4, 12, 16):
+    raise ValueError(f"the tokenizers take 4 (depth), 12 (rgb) or 16 "
+                     f"(rgbd) channels, got {in_channels}")
+  rgb = slice(0, 12) if in_channels in (12, 16) else None
+  depth = (slice(12, 16) if in_channels == 16
+           else slice(0, 4) if in_channels == 4 else None)
+  return rgb, depth
+
+
+class _Modalities(nn.Module):
+  """The rgb and depth tokenizers of 4, 12 or 16 channels
+  (`modality_slices`): per modality NatureEncoder -> 1x1 conv (or, with
+  two_by_two, 2x2 stride-2 conv) to token_dim -> 16 (or 4) spatial
+  tokens, row-major over the conv's output grid.  The depth modality
+  keeps the names of the 4-frame tokenizer (`nature`, `token_conv`), so
+  that the port's earlier snapshots and checkpoints load; rgb's are
+  `rgb_nature`, `rgb_token_conv`."""
+
+  def _add_modalities(self, in_channels: int, token_dim: int,
+                      two_by_two: bool):
+    self.rgb_slice, self.depth_slice = modality_slices(in_channels)
+    self.per_modal_tokens = 4 if two_by_two else 16
+    conv = lambda: (nn.Conv2d(64, token_dim, 2, 2) if two_by_two
+                    else nn.Conv2d(64, token_dim, 1))
+    self._modalities = []   # (name, Nature CNN, token conv, channels)
+    if self.rgb_slice is not None:
+      self.rgb_nature, self.rgb_token_conv = NatureEncoder(12), conv()
+      self._modalities.append(("rgb", self.rgb_nature, self.rgb_token_conv,
+                               self.rgb_slice))
+    if self.depth_slice is not None:
+      self.nature, self.token_conv = NatureEncoder(4), conv()
+      self._modalities.append(("depth", self.nature, self.token_conv,
+                               self.depth_slice))
+
+  def _init_modalities(self, gen):
+    for _, nature, conv, _ in self._modalities:
+      nature.init_weights(gen)
+      winit.orthogonal_(conv, gen)
+
+  def modality_tokens(self, visual_x):
+    """{"rgb" or "depth": (B, per_modal_tokens, token_dim)}, contiguous
+    as the fused layer takes them."""
+    out = {}
+    for name, nature, conv, sl in self._modalities:
+      h = conv(nature(visual_x[:, sl]))                  # (B, D, P, P)
+      out[name] = h.flatten(2).transpose(1, 2).contiguous()
+    return out
+
+
+class LocoTransformerEncoder(_Modalities):
+  """Tokenizer (base.py:497-627): a projected proprio token, then each
+  modality's 16 (or, with two_by_two, 4) spatial tokens, in the order
+  state, [rgb], [depth] (base.py:611-622).  Output (B, 1 + 16 M,
+  token_dim) for M modalities: 17 tokens on 4 depth frames, 33 on rgbd."""
 
   def __init__(self, in_channels: int, state_dim: int,
-               hidden_shapes: Sequence[int], token_dim: int = 64):
+               hidden_shapes: Sequence[int], token_dim: int = 64,
+               two_by_two: bool = False):
     super().__init__()
-    if in_channels != 4:
-      raise NotImplementedError("only the 4-frame depth tokenizer is ported "
-                                "(rgb modalities: ROADMAP queue 1 item 4)")
     self.state_mlp = MLPBase(state_dim, hidden_shapes)
     self.state_proj = nn.Linear(self.state_mlp.out_dim, token_dim)
-    self.nature = NatureEncoder(in_channels)
-    self.token_conv = nn.Conv2d(64, token_dim, 1)
+    self._add_modalities(in_channels, token_dim, two_by_two)
 
   def init_weights(self, gen):
     self.state_mlp.init_weights(gen)
     winit.fanin_uniform_(self.state_proj, gen)
-    self.nature.init_weights(gen)
-    winit.orthogonal_(self.token_conv, gen)
+    self._init_modalities(gen)
 
   def forward(self, visual_x, state_x):
     s = torch.relu(self.state_proj(self.state_mlp(state_x)))
-    h = self.token_conv(self.nature(visual_x))          # (B, D, 4, 4)
-    v = h.flatten(2).transpose(1, 2)                     # (B, 16, D)
-    return torch.cat([s[:, None], v], dim=1)
+    return torch.cat([s[:, None], *self.modality_tokens(visual_x).values()],
+                     dim=1)
 
 
-class VisionTokenEncoder(nn.Module):
-  """Vision-only tokenizer (base.py:388-496) for one depth modality:
-  NatureEncoder -> 1x1 conv (or, with two_by_two, 2x2 stride-2 conv) to
-  token_dim -> 16 (or 4) spatial tokens, and no proprio token.  Output
-  (B, tokens, token_dim), tokens in the JAX package's order (row-major
-  over the conv's output grid)."""
+class VisionTokenEncoder(_Modalities):
+  """Vision-only tokenizer (base.py:388-496): each modality's 16 (or 4)
+  spatial tokens and no proprio token, in the order depth, rgb for 16
+  channels (base.py:488-493), the opposite of LocoTransformerEncoder's.
+  Output (B, 16 M, token_dim)."""
 
   def __init__(self, in_channels: int, token_dim: int = 64,
                two_by_two: bool = False):
     super().__init__()
-    if in_channels != 4:
-      raise NotImplementedError(
-          f"only the 4-frame depth tokenizer is ported, got {in_channels} "
-          "channels: the env rejects rgbd (envs/env.py), and the rgb "
-          "modalities are ROADMAP queue 1 item 4")
-    self.per_modal_tokens = 4 if two_by_two else 16
-    self.nature = NatureEncoder(in_channels)
-    self.token_conv = (nn.Conv2d(64, token_dim, 2, 2) if two_by_two
-                       else nn.Conv2d(64, token_dim, 1))
+    self._add_modalities(in_channels, token_dim, two_by_two)
 
   def init_weights(self, gen):
-    self.nature.init_weights(gen)
-    winit.orthogonal_(self.token_conv, gen)
+    self._init_modalities(gen)
 
   def forward(self, visual_x):
-    h = self.token_conv(self.nature(visual_x))          # (B, D, P, P)
-    # (B, P*P, D), contiguous as the fused layer takes it
-    return h.flatten(2).transpose(1, 2).contiguous()
+    t = self.modality_tokens(visual_x)
+    parts = [t[k] for k in ("depth", "rgb") if k in t]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -29,9 +29,13 @@ from vision4leg_torch.ops import nvcc
 
 # shapes the kernels take, within the 227 KB of shared memory a block may
 # use: the forward holds a tile of G samples and two weight panels (208.5
-# KB at T = 17, D = 64 with G = 8; G = 1 at the largest shape, 176 KB: csrc
-# tl_plan), the backward one sample (at most 174 KB: tlb_smem_floats)
-MAX_T, MAX_D, MAX_F = 32, 128, 512
+# KB at T = 17 or 33, D = 64 with G = 8 or 4; G = 1 at the largest shape,
+# 176 KB: csrc tl_plan), the backward one sample (`bwd_smem_bytes`, which
+# `check_grad_inputs` holds to SMEM_MAX: 94.8 KB at T = 33, D = 64, F =
+# 256).  T <= 32 runs the forward's small attention instantiation, T <= 48
+# its large one (csrc TL_ATTN_SMALL, TL_ATTN_LARGE)
+MAX_T, MAX_D, MAX_F = 48, 128, 512
+SMEM_MAX = 232448
 
 
 class LayerWeights(NamedTuple):
@@ -338,11 +342,20 @@ def fused_layer_forward_saved(x, w: LayerWeights):
   return layer_forward_saved(x, w)
 
 
+def bwd_smem_bytes(T: int, D: int, F: int) -> int:
+  """Shared memory of one backward block (csrc tlb_smem_floats)."""
+  return 4 * (6 * T * (D + 1) + 2 * T * (T + 1) + T * (F + 1) + 3 * T)
+
+
 def check_grad_inputs(res: Residuals, g, w: LayerWeights):
   """Raise on what the backward kernel does not take; returns (B, T, D,
   F).  The residuals must be the saving forward's: views of one buffer at
   the kernel's offsets."""
   B, T, D, F = check_inputs(res.x, w)
+  if bwd_smem_bytes(T, D, F) > SMEM_MAX:
+    raise ValueError(f"transformer_layer_bwd: T={T} D={D} F={F} needs "
+                     f"{bwd_smem_bytes(T, D, F)} bytes of shared memory, "
+                     f"more than {SMEM_MAX}")
   if g.shape != res.x.shape or g.dtype != torch.float32 or \
      g.device != res.x.device or not g.is_contiguous():
     raise ValueError(f"transformer_layer_bwd: g must be a contiguous "

@@ -48,7 +48,12 @@
 //    1024, where one block per sample read 201 MB.
 //  - Attention runs on the tensor cores too, a warp per sample
 //    (tl_attn_sample): q k^T and P v in 3xTF32, the softmax on the score
-//    fragments in registers.  Both LayerNorms run on the CUDA cores,
+//    fragments in registers.  The kernel has two instantiations, by the
+//    attention's m-tiles and key tiles a sample: <2, 4> for T <= 32 (the
+//    17 and 16 tokens of the 4-frame models) and <3, 6> for T <= 48 (the
+//    16-channel LocoTransformer's 33 tokens, 1 + 16 rgb + 16 depth), so
+//    that the larger fragment arrays cost the T <= 32 launches no
+//    registers.  Both LayerNorms run on the CUDA cores,
 //    a warp per six rows, 4 columns a lane (16-byte loads and stores),
 //    with butterfly shuffles for the sums (every lane gets the same bits);
 //    the mean first and then the mean of the squared deviations, as the
@@ -57,7 +62,8 @@
 //    block (208.5 KB of shared memory) per SM.  A smaller batch takes G =
 //    ceil(B / SMs) so that it still spreads over the SMs (eval's B = 8: 8
 //    blocks of one sample), and the shared memory caps G (G = 1 at T = 32,
-//    D = 128).  The last tile may be ragged.  A tile's rows are padded to
+//    D = 128); TL_ROWS_MAX caps it too (G = 4 at T = 33: 132 rows in 144,
+//    256 tiles at B = 1024).  The last tile may be ragged.  A tile's rows are padded to
 //    whole units (48 rows), so that no unit needs a row guard.
 //  - Bank conflicts: activation rows have a stride of 16 mod 32 floats, so
 //    that an A fragment's 16-byte loads (lane (g, t) takes k = 4t..4t+3 of
@@ -108,6 +114,11 @@
 #define TL_GMAX 8            // samples of a tile, at most
 #define TL_ROWS_MAX 144      // rows of a tile, at most (3 units of 48)
 #define TL_SMEM_MAX 232448   // shared memory a block may use (bytes)
+#define TL_MAX_T 48          // tokens of a sample, at most
+// the attention's m-tiles (16 rows) and key tiles (8 keys) of a sample:
+// the small instantiation for T <= 32, the large one for T <= TL_MAX_T
+#define TL_ATTN_SMALL 2, 4
+#define TL_ATTN_LARGE 3, 6
 #define TLB_THREADS 256      // threads of a backward block
 #define RB 4                 // rows of one backward work item
 #define LN_EPS 1e-6f
@@ -768,14 +779,16 @@ __device__ __forceinline__ void tl_compute(const LayerArgs& a,
 // warp: S = q k^T / sqrt(D) against the T keys, softmax with the row
 // maximum subtracted, ctx = P v into the rows of q (and the residuals P
 // and ctx; rp, rc are unused without them).  On the card S and P v run on
-// the tensor cores in 3xTF32, as the dense products, for the sample's two
-// m-tiles of rows at once (T <= 32): S's m16n8k8 tiles (rows g, g + 8;
-// keys 2t, 2t + 1 of each of up to 4 key tiles) stay in registers for the
-// softmax (row maxima and sums over the 4 lanes of a row: 2 shuffles),
-// and are P v's A fragments as they are, with P v's k index t standing
-// for key 2t and t + 4 for key 2t + 1 of each key tile.  Rows and keys
-// past T read row T - 1 and are dropped (keys as -inf before the
-// softmax).  The host body computes the same products row by row.
+// the tensor cores in 3xTF32, as the dense products, for the sample's MT
+// m-tiles of rows at once (T <= 16 MT): S's m16n8k8 tiles (rows g, g + 8;
+// keys 2t, 2t + 1 of each of up to NK key tiles, T <= 8 NK) stay in
+// registers for the softmax (row maxima and sums over the 4 lanes of a
+// row: 2 shuffles), and are P v's A fragments as they are, with P v's k
+// index t standing for key 2t and t + 4 for key 2t + 1 of each key tile.
+// Rows and keys past T read row T - 1 and are dropped (keys as -inf
+// before the softmax).  The host body computes the same products row by
+// row, whatever MT and NK.
+template <int MT, int NK>
 __device__ __forceinline__ void tl_attn_sample(const LayerArgs& a,
                                                const TlPlan& pl, float* smem,
                                                int tile, int base,
@@ -788,66 +801,66 @@ __device__ __forceinline__ void tl_attn_sample(const LayerArgs& a,
   const float* V = smem + pl.oV;
 #ifdef __CUDA_ARCH__
   const int g = lane >> 2, t = lane & 3, nk = (T + 7) / 8, mt = (T + 15) / 16;
-  int ra[2], rb[2];  // the lane's rows g and g + 8 of each m-tile
+  int ra[MT], rb[MT];  // the lane's rows g and g + 8 of each m-tile
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < MT; ++m) {
     ra[m] = base + (16 * m + g < T ? 16 * m + g : T - 1);
     rb[m] = base + (16 * m + g + 8 < T ? 16 * m + g + 8 : T - 1);
   }
-  float S[2][4][4] = {};  // m-tile m, key tile ni: rows g, g + 8 x keys
-                          // 8 ni + 2t, +1
+  float S[MT][NK][4] = {};  // m-tile m, key tile ni: rows g, g + 8 x
+                            // keys 8 ni + 2t, +1
   for (int k0 = 0; k0 < pl.Dp; k0 += 16) {
-    float lo[2][4], hi[2][4], kb[4][4], blk[2][4][4] = {};
+    float lo[MT][4], hi[MT][4], kb[NK][4], blk[MT][NK][4] = {};
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < MT; ++m) {
       tl_ld4(Q + ra[m] * pl.ldx + k0 + 4 * t, lo[m]);
       tl_ld4(Q + rb[m] * pl.ldx + k0 + 4 * t, hi[m]);
     }
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
+    for (int ni = 0; ni < NK; ++ni) {
       const int key = 8 * ni + g < T ? 8 * ni + g : T - 1;
       tl_ld4(K + (base + key) * pl.ldx + k0 + 4 * t, kb[ni]);
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      uint32_t ab[2][4], as[2][4], bb[4][2], bs[4][2];
+      uint32_t ab[MT][4], as[MT][4], bb[NK][2], bs[NK][2];
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
+      for (int m = 0; m < MT; ++m) {
         tl_split(lo[m][2 * j], ab[m][0], as[m][0]);
         tl_split(hi[m][2 * j], ab[m][1], as[m][1]);
         tl_split(lo[m][2 * j + 1], ab[m][2], as[m][2]);
         tl_split(hi[m][2 * j + 1], ab[m][3], as[m][3]);
       }
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
+      for (int ni = 0; ni < NK; ++ni) {
         tl_split(kb[ni][2 * j], bb[ni][0], bs[ni][0]);
         tl_split(kb[ni][2 * j + 1], bb[ni][1], bs[ni][1]);
       }
 #pragma unroll
       for (int kind = 0; kind < 3; ++kind)
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
+        for (int m = 0; m < MT; ++m)
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
+          for (int ni = 0; ni < NK; ++ni)
             if (m < mt && ni < nk)
               tl_mma(blk[m][ni], kind == 1 ? as[m] : ab[m],
                      kind == 0 ? bs[ni] : bb[ni]);
     }
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+      for (int ni = 0; ni < NK; ++ni)
 #pragma unroll
         for (int i = 0; i < 4; ++i) S[m][ni][i] += blk[m][ni][i];
   }
   // softmax of rows g (i = 0, 1) and g + 8 (i = 2, 3) of each m-tile
-  float mx[2][2], sum[2][2];
+  float mx[MT][2], sum[MT][2];
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < MT; ++m) {
     mx[m][0] = mx[m][1] = -INFINITY;
     sum[m][0] = sum[m][1] = 0.0f;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int ni = 0; ni < NK; ++ni)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const bool key = ni < nk && 8 * ni + 2 * t + (i & 1) < T;
@@ -858,14 +871,14 @@ __device__ __forceinline__ void tl_attn_sample(const LayerArgs& a,
 #pragma unroll
   for (int o = 1; o <= 2; o <<= 1)
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         mx[m][h] = fmaxf(mx[m][h], __shfl_xor_sync(0xffffffffu, mx[m][h], o));
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int ni = 0; ni < NK; ++ni)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const bool key = ni < nk && 8 * ni + 2 * t + (i & 1) < T;
@@ -875,22 +888,22 @@ __device__ __forceinline__ void tl_attn_sample(const LayerArgs& a,
 #pragma unroll
   for (int o = 1; o <= 2; o <<= 1)
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         sum[m][h] += __shfl_xor_sync(0xffffffffu, sum[m][h], o);
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int ni = 0; ni < NK; ++ni)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         S[m][ni][i] = tl_div(S[m][ni][i], sum[m][i >> 1]);
   if (a.res != nullptr)
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+      for (int ni = 0; ni < NK; ++ni)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int row = 16 * m + g + 8 * (i >> 1);
@@ -900,12 +913,12 @@ __device__ __forceinline__ void tl_attn_sample(const LayerArgs& a,
         }
   __syncwarp();  // every lane has read the rows' q
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < MT; ++m) {
     if (m >= mt) break;
     // P's A fragments of m-tile m, split
-    uint32_t pb[4][4], ps[4][4];
+    uint32_t pb[NK][4], ps[NK][4];
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
+    for (int ni = 0; ni < NK; ++ni) {
       tl_split(S[m][ni][0], pb[ni][0], ps[ni][0]);
       tl_split(S[m][ni][2], pb[ni][1], ps[ni][1]);
       tl_split(S[m][ni][1], pb[ni][2], ps[ni][2]);
@@ -914,7 +927,7 @@ __device__ __forceinline__ void tl_attn_sample(const LayerArgs& a,
     for (int n0 = 0; n0 < pl.Dp; n0 += 32) {
       float o[4][4] = {};  // column tile nj: rows g, g + 8 x columns 2t, +1
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
+      for (int ni = 0; ni < NK; ++ni) {
         if (ni >= nk) continue;
         const int k0 = 8 * ni + 2 * t, k1 = k0 + 1;
         const float* v0 = V + (base + (k0 < T ? k0 : T - 1)) * pl.ldv + n0 + g;
@@ -926,12 +939,33 @@ __device__ __forceinline__ void tl_attn_sample(const LayerArgs& a,
           tl_split(v0[c], bb[nj][0], bs[nj][0]);
           tl_split(v1[c], bb[nj][1], bs[nj][1]);
         }
+        // the large instantiation sums each key tile's three products
+        // from zero and adds them in float32, as the dense products sum
+        // each 16-deep step (tl_unit_mma), rather than leave its 15-18
+        // products to the tensor core's own accumulation (which drops
+        // low bits); the small one keeps its 9-12 there, as measured
+        // since the tiles were written.  On an H100 the layer's gradient
+        // check at (1024, 33) passed 7 of 8 seeds so, 6 of 8 without
+        if constexpr (NK > 4) {
+          float blk[4][4] = {};
 #pragma unroll
-        for (int kind = 0; kind < 3; ++kind)
+          for (int kind = 0; kind < 3; ++kind)
+#pragma unroll
+            for (int nj = 0; nj < 4; ++nj)
+              tl_mma(blk[nj], kind == 1 ? ps[ni] : pb[ni],
+                     kind == 0 ? bs[nj] : bb[nj]);
 #pragma unroll
           for (int nj = 0; nj < 4; ++nj)
-            tl_mma(o[nj], kind == 1 ? ps[ni] : pb[ni],
-                   kind == 0 ? bs[nj] : bb[nj]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) o[nj][i] += blk[nj][i];
+        } else {
+#pragma unroll
+          for (int kind = 0; kind < 3; ++kind)
+#pragma unroll
+            for (int nj = 0; nj < 4; ++nj)
+              tl_mma(o[nj], kind == 1 ? ps[ni] : pb[ni],
+                     kind == 0 ? bs[nj] : bb[nj]);
+        }
       }
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj) {
@@ -954,7 +988,7 @@ __device__ __forceinline__ void tl_attn_sample(const LayerArgs& a,
 #else
   for (int row = 0; row < T; ++row) {
     float* qr = Q + (base + row) * pl.ldx;
-    float p[32], mx = -INFINITY, sum = 0.0f;
+    float p[TL_MAX_T], mx = -INFINITY, sum = 0.0f;
     for (int u = 0; u < T; ++u) {
       const float* kr = K + (base + u) * pl.ldx;
       float s = 0.0f;
@@ -990,6 +1024,7 @@ __device__ __forceinline__ void tl_attn_sample(const LayerArgs& a,
 }
 
 // phase: attention, a warp per sample (tl_attn_sample)
+template <int MT, int NK>
 __device__ __forceinline__ void tl_attention(const LayerArgs& a,
                                              const TlPlan& pl, float* smem,
                                              int tile, int warp, int lane) {
@@ -1001,7 +1036,8 @@ __device__ __forceinline__ void tl_attention(const LayerArgs& a,
     rc = tl_res_field(a, R_CTX);
   }
   for (int s = warp; s < samples; s += TL_WARPS)
-    tl_attn_sample(a, pl, smem, tile, s * T, inv_scale, rp, rc, lane);
+    tl_attn_sample<MT, NK>(a, pl, smem, tile, s * T, inv_scale, rp, rc,
+                           lane);
 }
 
 // LayerNorm runs TL_RA rows at once in a warp, so that their latency
@@ -1134,13 +1170,15 @@ __device__ __forceinline__ void tl_load(const LayerArgs& a, const TlPlan& pl,
 // The layer on tile `tile`: x, the parameter vectors and panel 0 in; per
 // panel its product (which also issues the copy of the next panel), with
 // attention before Wo, LN1 before the FFN and LN2 after it.  Each phase
-// is written once, so that its code is inlined once.
+// is written once, so that its code is inlined once.  MT, NK: the
+// attention's m-tiles and key tiles (TL_ATTN_SMALL or TL_ATTN_LARGE).
+template <int MT, int NK>
 __device__ inline void tl_tile(const LayerArgs& a, const TlPlan& pl,
                                float* smem, int tile, int warp, int lane) {
   TL_PHASE(0, tl_load(a, pl, smem, tile, warp, lane));
   for (int p = 0;; ++p) {
     if (p == 3 * pl.nd)
-      TL_PHASE(-1, tl_attention(a, pl, smem, tile, warp, lane));
+      TL_PHASE(-1, (tl_attention<MT, NK>(a, pl, smem, tile, warp, lane)));
     if (p == 4 * pl.nd || p == pl.np)
       TL_PHASE(-1, tl_layernorm(a, pl, smem, tile, warp, lane, p == pl.np));
     if (p == pl.np) break;
@@ -1182,9 +1220,11 @@ struct BwdArgs {
 //   T (F + 1)    dh
 //   3 T          rstd and the two row means of a LayerNorm backward
 // At B x 17 x 64 with F = 256: 6630 + 612 + 4369 + 51 = 11662 floats,
-// 46.6 KB, so four blocks fit in an SM's 227 KB; at the largest shape the
-// wrapper takes (T = 32, D = 128, F = 512): 24768 + 2112 + 16416 + 96 =
-// 43392 floats, 173.6 KB.
+// 46.6 KB, so four blocks fit in an SM's 227 KB; at T = 33: 12870 + 2244
+// + 8481 + 99 = 23694 floats, 94.8 KB; at T = 32, D = 128, F = 512: 24768
+// + 2112 + 16416 + 96 = 43392 floats, 173.6 KB.  Nothing in it is sized
+// by T at compile time; the wrapper refuses a shape past 227 KB (at
+// T = 48, D = 128, F = 512 it would take 266.5 KB).
 struct BwdSmem {
   float *g, *a, *c, *q, *k, *v, *p, *dp, *h, *rstd, *s1, *s2;
   int ld, lds, ldh;
@@ -1469,15 +1509,16 @@ __device__ inline void tlb_phase(int ph, const BwdArgs& a, float* base,
 
 
 #ifdef __CUDACC__
+template <int MT, int NK>
 __global__ void __launch_bounds__(TL_FWD_THREADS, 1)
     transformer_layer_kernel(LayerArgs a, TlPlan pl) {
   extern __shared__ float4 tl_smem[];
-  tl_tile(a, pl, reinterpret_cast<float*>(tl_smem), blockIdx.x,
-          threadIdx.x >> 5, threadIdx.x & 31);
+  tl_tile<MT, NK>(a, pl, reinterpret_cast<float*>(tl_smem), blockIdx.x,
+                  threadIdx.x >> 5, threadIdx.x & 31);
 }
 
-// SMs of the current card (first call: also raises the forward's shared
-// memory limit); 0 on error, in *err
+// SMs of the current card (first call: also raises both forward
+// instantiations' shared memory limit); 0 on error, in *err
 static int tl_num_sms(cudaError_t* err) {
   static int nsm = 0;
   *err = cudaSuccess;
@@ -1487,7 +1528,11 @@ static int tl_num_sms(cudaError_t* err) {
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(transformer_layer_kernel,
+      e = cudaFuncSetAttribute(transformer_layer_kernel<TL_ATTN_SMALL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               TL_SMEM_MAX);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(transformer_layer_kernel<TL_ATTN_LARGE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                TL_SMEM_MAX);
     if (e != cudaSuccess) {
@@ -1507,9 +1552,11 @@ extern "C" int transformer_layer_tile_samples(int B, int T, int D, int F) {
   return nsm > 0 ? tl_make_plan(B, T, D, F, nsm).G : -(int)e;
 }
 
-// One block per tile of G samples on `stream`; res null for inference,
-// else the residual buffer (tl_res); returns cudaGetLastError() (the
-// wrapper checks shapes: 1 <= T <= 32, D <= 128, F <= 512).
+// One block per tile of G samples on `stream`, the attention's small
+// instantiation for T <= 32 and the large one above; res null for
+// inference, else the residual buffer (tl_res); returns
+// cudaGetLastError() (the wrapper checks shapes: 1 <= T <= TL_MAX_T = 48,
+// D <= 128, F <= 512).
 extern "C" int transformer_layer_launch(
     const void* x, void* out, const void* wq, const void* bq, const void* wk,
     const void* bk, const void* wv, const void* bv, const void* wo,
@@ -1544,9 +1591,13 @@ extern "C" int transformer_layer_launch(
   const int nsm = tl_num_sms(&e);
   if (nsm == 0) return (int)e;
   const TlPlan pl = tl_make_plan(B, T, D, F, nsm);
-  transformer_layer_kernel<<<pl.tiles, TL_FWD_THREADS,
-                             (size_t)pl.floats * sizeof(float),
-                             (cudaStream_t)stream>>>(a, pl);
+  const size_t smem = (size_t)pl.floats * sizeof(float);
+  if (T <= 32)
+    transformer_layer_kernel<TL_ATTN_SMALL>
+        <<<pl.tiles, TL_FWD_THREADS, smem, (cudaStream_t)stream>>>(a, pl);
+  else
+    transformer_layer_kernel<TL_ATTN_LARGE>
+        <<<pl.tiles, TL_FWD_THREADS, smem, (cudaStream_t)stream>>>(a, pl);
   return (int)cudaGetLastError();
 }
 
