@@ -243,7 +243,36 @@ Phases, each printed with the seconds since start:
      16-step thin-goal collection at 1024 envs, diagonal_act off: launches
      held, the phase of the envs no reset restarted, the commands within
      the joint limits (`phase_trajectory_generator`);
- 32. one JSON line with every kernel's numbers (launches summed over the
+ 32. the rest of the on-policy family (`phase_on_policy_family`): a
+     16-step thin-goal collection at 1024 envs with the LocoTransformer at
+     full width, fused collection forward (rows 1 and 2); from copies of
+     its weights and trajectory one update_per_epoch each of A2C,
+     REINFORCE and V-MPO with the fused update (row 2ad) and of TRPO
+     unfused, over the 16,384 samples; A2C and V-MPO also unfused (four
+     minibatches from one state held to FUSED_UPDATE_BAND, as phase 11;
+     the whole epoch's difference printed); TRPO asked for a fused update raises before any
+     launch, and a second derivative through the fused layer raises on
+     the card; each learner's float64 update on the first 64 envs x 4
+     steps on the card against the CPU within 1e-7 relative (TRPO's
+     accepted step fraction printed on each); launches exact;
+ 33. PPO-aux (`phase_ppo_aux`): ImpalaFuseResidualActorCritic at (256,
+     256), visual_dim 256, on thin-goal's observations, a 16-step
+     collection at 1024 envs (row 1), one PPO-aux epoch at the config's
+     opt_epochs 3 and aux_coeff 1.0; the float64 update on the first 64
+     envs x 2 steps on the card against the CPU;
+ 34. the off-policy family (`phase_off_policy`): state-only-baseline's env
+     at 1024 envs with terrain_type random_blocks_sparse_with_subgoal (the
+     window carries every step), an OffPolicyAgent with a 2**20 replay on
+     the card for each of TwinSACQ, TD3, DDPG and SAC at (256, 256),
+     batch 256: pretrain 16 steps, train_epoch(16384); replay size and
+     update_count exact, row 1 once a step; each learner's update from one
+     replay sample with injected draws, and DQN's three modes on seeded
+     batches, in float64 on the card against the CPU within 1e-9;
+ 35. the hierarchical collector (`phase_hierarchical`): phase 34's env,
+     a frozen low level and a high level at (256, 256), a 16-step
+     rollout (row 1), one PPO epoch on the high level; the stored actions
+     1-dim, the act path on the card against the CPU within 1e-6;
+ 36. one JSON line with every kernel's numbers (launches summed over the
      paths, with each path's count and the shapes run), then the last
      line {"ok": true, "device": {...}}.
 
@@ -256,8 +285,11 @@ baseline's 1; the MPC heightfield 2 collection steps and 2 eval steps
 (each step runs 100 substeps of the per-env engine, each reset 400); the
 MPC walk 20 steps at 64 envs; the demo 10 s of its profile's 20 (its
 first two segments); the JAX-trained policy's eval 32 envs of 999 steps,
-its viewer 2 episodes; the env viewer 64 steps at one env.  Widths are
-the configs' own.
+its viewer 2 episodes; the env viewer 64 steps at one env; the on-policy
+family, PPO-aux and the hierarchical collector one epoch each, the
+off-policy learners 16 pretrain steps and one epoch of 16 steps each; the
+float64 card-vs-CPU updates the first 64 envs of 4 steps (PPO-aux: 2).
+Widths are the configs' own.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
 below), since outputs are compared; phase 7 turns cuDNN's TF32 on for
@@ -2950,6 +2982,645 @@ def phase_trajectory_generator(card, dev):
   return dict(launches, seconds=dt), horizon * NUM_ENVS / dt
 
 
+# ---------------------------------------------------------------------------
+# phases 32-35: the rest of the on-policy family, the off-policy family,
+# the hierarchical collector
+# ---------------------------------------------------------------------------
+
+F64_ENVS = 64          # the float64 card-vs-CPU updates: the first 64 envs
+F64_STEPS = 4          # ... of the first 4 steps (phase 33: F64_AUX_STEPS;
+F64_AUX_STEPS = 2      # the Impala encoder costs ~10x the Nature CNN)
+F64_REL = 1e-7         # on-policy updates, card vs CPU, float64
+OFF_F64_REL = 1e-9     # one off-policy update, card vs CPU, float64
+HIER_ACT_TOL = 1e-6    # the hierarchical act_fn, card vs CPU, float32
+OFF_POLICY_OVERRIDES = {"terrain_type": "random_blocks_sparse_with_subgoal"}
+OFF_POLICY_STEPS = 16  # pretrain and epoch steps at NUM_ENVS envs
+REPLAY_CAPACITY = 2 ** 20
+DQN_ACTIONS = 6
+CARD_DEVICE = "cuda"   # the card side of the float64 comparisons
+
+
+def zero_counts():
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  pk.robot_window.launches = 0
+  att.fused_transformer_layer.launches = 0
+  att.fused_transformer_layer_bwd.launches = 0
+
+
+def read_counts():
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  return {"physics_window": pk.robot_window.launches,
+          "transformer_layer": att.fused_transformer_layer.launches,
+          "transformer_layer_bwd": att.fused_transformer_layer_bwd.launches}
+
+
+def set_counts(counts):
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  pk.robot_window.launches = counts["physics_window"]
+  att.fused_transformer_layer.launches = counts["transformer_layer"]
+  att.fused_transformer_layer_bwd.launches = counts["transformer_layer_bwd"]
+
+
+def rel_diff(a, b):
+  """Largest |a - b| over a dict of tensors, relative to the largest |b|
+  over all of them (one scale for the whole state: a tensor whose update
+  is rounding alone, as the key bias's, whose gradient is exactly 0 in
+  exact arithmetic, would make a per-tensor ratio meaningless)."""
+  diff = scale = 0.0
+  for k, v in b.items():
+    v = v.detach().cpu().double()
+    diff = max(diff, float((a[k].detach().cpu().double() - v).abs().max()))
+    scale = max(scale, float(v.abs().max()))
+  return diff / max(scale, 1e-300)
+
+
+def on_policy_configs(params, batch_size=None):
+  """The A2C, REINFORCE, V-MPO and TRPO configs of `params`' ppo section
+  (its rates, opt_epochs, batch and GAE settings; each algorithm's own
+  lr_decay, TRPO's own opt_epochs); `batch_size` replaces the batch (and
+  epoch_frames)."""
+  import dataclasses
+
+  from vision4leg_torch.algo import a2c, trpo, vmpo
+  from vision4leg_torch.algo.on_policy_base import OnPolicyConfig
+  from vision4leg_torch.starter import common
+  base = common.ppo_config(params)
+  fields = {f.name: getattr(base, f.name)
+            for f in dataclasses.fields(OnPolicyConfig)
+            if f.name != "lr_decay"}
+  if batch_size is not None:
+    fields.update(batch_size=batch_size, epoch_frames=batch_size)
+  no_opt = {k: v for k, v in fields.items() if k != "opt_epochs"}
+  return {"A2C": (a2c.A2CLearner, a2c.A2CConfig(**fields)),
+          "REINFORCE": (a2c.ReinforceLearner, a2c.A2CConfig(**fields)),
+          "V-MPO": (vmpo.VMPOLearner, vmpo.VMPOConfig(**fields)),
+          "TRPO": (trpo.TRPOLearner, trpo.TRPOConfig(**no_opt))}
+
+
+def run_update(learner_cls, cfg, net, traj, last_v, fused, perms,
+               pi_aux=False):
+  """One update_per_epoch of a copy of `net` by `learner_cls` (fused=None:
+  a module without the switch); returns (the copy's state_dict, the
+  metrics as floats, the learner)."""
+  import copy
+  m = copy.deepcopy(net).train()
+  kw = {"fused": fused} if fused is not None else {}
+  args = (cfg, lambda mm, x: mm.pi(x, **kw), lambda mm, x: mm.v(x, **kw), m)
+  if pi_aux:
+    learner = learner_cls(*args, apply_pi_aux=lambda mm, x: mm.pi_with_aux(x))
+  else:
+    learner = learner_cls(*args)
+  _, metrics = learner.update_per_epoch(learner.init_state(m), traj, last_v,
+                                        perms=perms)
+  return ({k: v.detach() for k, v in m.state_dict().items()},
+          {k: float(v) for k, v in metrics.items()}, learner)
+
+
+def float64_card_vs_cpu(label, learners, net, traj, last_v, envs, steps,
+                        pi_aux=False):
+  """Each learner's update of a float64 copy of `net` on the card and on
+  the CPU, from the first `envs` envs x `steps` steps of the trajectory
+  (float64) with its rows in order: the largest relative parameter and
+  metric difference, held to F64_REL; the step fraction TRPO accepted on
+  each."""
+  import copy
+
+  import torch
+  from vision4leg_torch.collector.rollout import Transition
+  traj = Transition(*(x[:steps, :envs] for x in traj))
+  last_v = last_v[:envs]
+  perms = [list(range(steps))] * 10
+  out = {}
+  for name, (cls, cfg) in learners.items():
+    got = {}
+    for dev in (CARD_DEVICE, "cpu"):
+      m = copy.deepcopy(net).to(dev).double()
+      tr = Transition(*(x.to(dev).double() if x.is_floating_point()
+                        else x.to(dev) for x in traj))
+      sd, metrics, learner = run_update(cls, cfg, m, tr,
+                                        last_v.to(dev).double(), None, perms,
+                                        pi_aux)
+      got[dev] = (sd, metrics, getattr(learner, "last_search", {}).get(
+          "step_frac"))
+    card = got[CARD_DEVICE]
+    err = rel_diff(card[0], got["cpu"][0])
+    m_err = max(abs(card[1][k] - v) / max(abs(v), 1e-300)
+                for k, v in got["cpu"][1].items())
+    frac = ("" if got["cpu"][2] is None else
+            f"; TRPO accepted step fraction {card[2]} on the card, "
+            f"{got['cpu'][2]} on the CPU")
+    log(f"[{label}] {name} float64 update on the card vs the CPU "
+        f"({envs} envs x {steps} steps): largest parameter difference "
+        f"{err:.3e} of the largest parameter, metrics {m_err:.3e} relative "
+        f"(gate {F64_REL:g})"
+        f"{frac}")
+    if not (err <= F64_REL and m_err <= F64_REL):
+      raise AssertionError(f"[{label}] {name} float64 card/CPU update "
+                           f"parts by {err:.3e} / {m_err:.3e}")
+    if card[2] != got["cpu"][2]:
+      raise AssertionError(f"[{label}] TRPO accepted other steps")
+    out[name] = dict(param_rel=err, metric_rel=m_err, step_frac=card[2])
+  return out
+
+
+def second_derivative_raises(net, obs):
+  """A second derivative through the fused layer on the card (the
+  gradient of the policy mean's square with create_graph, as TRPO's
+  Fisher-vector product takes it) raises: the layer is
+  once-differentiable.  Its launches are a check and are not counted."""
+  import torch
+  before = read_counts()
+  p = [q for n, q in net.named_parameters() if n.startswith("pf_layers")]
+  mean, _, _ = net.pi(obs, fused=True)
+  try:
+    torch.autograd.grad((mean ** 2).sum(), p, create_graph=True,
+                        allow_unused=True)
+  except RuntimeError as e:
+    if "once-differentiable" not in str(e):
+      raise
+    raised = True
+  else:
+    raised = False
+  set_counts(before)
+  log(f"[on-policy family] a second derivative through the fused layer on "
+      f"the card raised: {raised}")
+  if not raised:
+    raise AssertionError("a second derivative through the fused layer did "
+                         "not raise on the card")
+
+
+def collection_rollout(env, meta, params, pi_v, v, horizon):
+  from vision4leg_torch.collector import rollout as rollout_lib
+  gs = params["general_setting"]
+  return rollout_lib.make_rollout_fn(
+      env, pi_v, v, horizon=horizon,
+      max_episode_frames=params["collector"]["max_episode_frames"],
+      discount=gs["discount"], proprio_dim=env.cfg.proprio_dim,
+      obs_norm=meta["obs_norm"], action_low=env.action_low,
+      action_high=env.action_high, env_time_limit=meta["horizon"],
+      reward_scale=meta["reward_scale"])
+
+
+def timed_rollout(env, rollout, seed, dev):
+  """init_collector at NUM_ENVS envs, then the rollout with the counts set
+  to 0 just before; (traj, last value, launches with the seconds)."""
+  import torch
+  from vision4leg_torch.collector import rollout as rollout_lib
+  cs = rollout_lib.init_collector(
+      env, NUM_ENVS, torch.Generator(device=dev).manual_seed(seed))
+  zero_counts()
+  t = time.perf_counter()
+  _, traj, last_v = rollout(cs)
+  torch.cuda.synchronize()
+  return traj, last_v, dict(read_counts(), seconds=time.perf_counter() - t)
+
+
+def fused_vs_unfused(name, cls, cfg, net, traj, last_v, perms, fused_sd,
+                     result):
+  """The fused update against the unfused one from the same state, as
+  `phase_fused_update` holds PPO's: four minibatches of NUM_ENVS samples
+  (the first four steps, in order, one opt epoch) within
+  FUSED_UPDATE_BAND.  The whole epoch's difference (48 minibatches, from
+  `fused_sd`) is printed beside it: float32 ReLU-kink flips compound over
+  the steps there (tests/test_torch_ppo.py), so it is not gated."""
+  import dataclasses
+
+  import torch
+  from vision4leg_torch.collector.rollout import Transition
+  t = time.perf_counter()
+  plain, _, _ = run_update(cls, cfg, net, traj, last_v, False, perms)
+  torch.cuda.synchronize()
+  result["unfused_seconds"] = time.perf_counter() - t
+  epoch = max(float((fused_sd[k] - v).abs().max()) for k, v in plain.items())
+  cfg4 = dataclasses.replace(cfg, opt_epochs=1, shuffle=False,
+                             batch_size=NUM_ENVS, epoch_frames=4 * NUM_ENVS)
+  traj4 = Transition(*(x[:4] for x in traj))
+  before = read_counts()
+  four = [run_update(cls, cfg4, net, traj4, last_v, f, [list(range(4))])[0]
+          for f in (True, False)]
+  set_counts(before)
+  diff = max(float((four[0][k] - v).abs().max()) for k, v in four[1].items())
+  init = net.state_dict()
+  moved = max(float((v - init[k]).abs().max()) for k, v in four[1].items())
+  log(f"[on-policy family] {name} fused vs unfused: 4 minibatches of "
+      f"{NUM_ENVS} from one state, largest parameter difference {diff:.3e} "
+      f"(band {FUSED_UPDATE_BAND:g}; the unfused update moved the "
+      f"parameters by up to {moved:.3e}); the whole epoch's ("
+      f"{cfg.opt_epochs * (traj.rewards.shape[0] // max(cfg.batch_size // NUM_ENVS, 1))}"
+      f" minibatches) {epoch:.3e}, not gated; unfused epoch "
+      f"{result['unfused_seconds']:.3f}s")
+  if not diff <= FUSED_UPDATE_BAND:
+    raise AssertionError(f"[on-policy family] {name} fused update parts "
+                         f"by {diff:.3e}")
+  return dict(four_minibatches=diff, four_minibatches_move=moved,
+              whole_epoch=epoch)
+
+
+def phase_on_policy_family(env, meta, params, card, dev):
+  """Phase 32: one 16-step thin-goal rollout at NUM_ENVS envs with the
+  LocoTransformer at full width (seeded weights, fused collection forward:
+  rows 1 and 2), then from copies of the same weights and trajectory one
+  update_per_epoch each of A2C, REINFORCE and V-MPO with the fused update
+  (row 2ad) and of TRPO unfused, over the whole batch; A2C and V-MPO also
+  unfused (`fused_vs_unfused`: four minibatches held to
+  FUSED_UPDATE_BAND, the whole epoch printed); TRPO asked for a fused update
+  raises before any launch, and a second derivative through the fused
+  layer raises on the card; each learner's float64 update on the first
+  F64_ENVS envs x F64_STEPS steps (batch_size their count) on the card
+  against the CPU at F64_REL.  Launch counts exact."""
+  import torch
+  from vision4leg_torch.starter import common
+  t0 = time.perf_counter()
+  net = actor_critic(env, params, torch.Generator().manual_seed(32)).to(dev)
+  horizon = common.ppo_config(params).epoch_frames // NUM_ENVS
+  rollout = collection_rollout(env, meta, params,
+                               lambda x: net.pi_v(x, fused=True),
+                               lambda x: net.v(x, fused=True), horizon)
+  traj, last_v, coll = timed_rollout(env, rollout, 32, dev)
+  paths = {"on-policy family collection (fused)": coll}
+  want = {"physics_window": horizon, "transformer_layer": 4 * horizon + 2,
+          "transformer_layer_bwd": 0}
+  log(f"[on-policy family] rollout {horizon} x {NUM_ENVS} in "
+      f"{coll['seconds']:.3f}s on {card}; launches {coll}, expected {want}")
+  if {k: coll[k] for k in want} != want:
+    raise AssertionError(f"[on-policy family] collection launches {coll}")
+  perms = [torch.randperm(horizon, generator=torch.Generator().manual_seed(
+      e)).tolist() for e in range(10)]
+  results, fused_gate = {}, {}
+  for name, (cls, cfg) in on_policy_configs(params).items():
+    fused = name != "TRPO"
+    if not fused:
+      zero_counts()
+      try:
+        cls(cfg, None, None, net, fused_update=True)
+      except NotImplementedError as e:
+        log(f"[on-policy family] TRPO asked for a fused update raised: {e}")
+      else:
+        raise AssertionError("TRPO took a fused update")
+      if any(read_counts().values()):
+        raise AssertionError("TRPO's refusal launched a kernel")
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    sd, metrics, learner = run_update(cls, cfg, net, traj, last_v, fused,
+                                      perms)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = read_counts()
+    rows = max(cfg.batch_size // NUM_ENVS, 1)
+    n_mb = (cfg.v_opt_times if name == "TRPO" else cfg.opt_epochs) * (
+        horizon // rows)
+    per_mb = {"REINFORCE": 2}.get(name, 4) * fused
+    want_u = {"physics_window": 0, "transformer_layer": per_mb * n_mb,
+              "transformer_layer_bwd": per_mb * n_mb}
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    init = net.state_dict()
+    moved = sum(not torch.equal(v, init[k]) for k, v in sd.items())
+    kind = "fused" if fused else "unfused"
+    extra = (f"; accepted step fraction {learner.last_search['step_frac']}"
+             f", kl_after {metrics['Training/kl_after']:.3e}"
+             if name == "TRPO" else "")
+    log(f"[on-policy family] {name} update_per_epoch ({kind}, {n_mb} "
+        f"minibatches of {rows * NUM_ENVS}"
+        + (" after the full-batch natural-gradient step"
+           if name == "TRPO" else "")
+        + f") over {horizon} x {NUM_ENVS} samples on {card}: {dt:.3f}s; "
+        f"launches {counts}, expected {want_u}; {moved}/{len(sd)} tensors "
+        f"moved; policy_loss {metrics['Training/policy_loss']:.5f}{extra}")
+    if counts != want_u or bad or not moved:
+      raise AssertionError(f"[on-policy family] {name}: launches {counts}, "
+                           f"non-finite {bad}, moved {moved}")
+    paths[f"{name} update ({kind})"] = dict(counts, seconds=dt)
+    results[name] = dict(seconds=dt, minibatches=n_mb, metrics=metrics)
+    if name == "TRPO":
+      results[name]["step_frac"] = learner.last_search["step_frac"]
+    if name in ("A2C", "V-MPO"):
+      fused_gate[name] = fused_vs_unfused(name, cls, cfg, net, traj, last_v,
+                                          perms, sd, results[name])
+  second_derivative_raises(net, traj.obs[0, :8])
+  n = F64_ENVS * F64_STEPS
+  f64 = float64_card_vs_cpu("on-policy family", on_policy_configs(params, n),
+                            net, traj, last_v, F64_ENVS, F64_STEPS)
+  dt = time.perf_counter() - t0
+  log(f"[on-policy family] phase 32 in {dt:.2f}s")
+  return paths, dict(updates=results, fused_vs_unfused=fused_gate,
+                     float64=f64, seconds=dt)
+
+
+def phase_ppo_aux(env, meta, params, card, dev):
+  """Phase 33: ImpalaFuseResidualActorCritic at the config's widths
+  (`common.nature_kwargs`: encoder (256, 256), visual_dim 256, heads (256,
+  256)) on thin-goal's observation layout, seeded weights; one 16-step
+  rollout at NUM_ENVS envs (row 1 once a step; the model has no
+  transformer layer), one PPO-aux epoch at the config's opt_epochs and
+  aux_coeff 1.0 over the whole batch; the float64 update on the first
+  F64_ENVS envs x F64_AUX_STEPS steps on the card against the CPU."""
+  import dataclasses
+
+  import torch
+  from vision4leg_torch.algo import ppo_aux
+  from vision4leg_torch.models.actor_critic import \
+      ImpalaFuseResidualActorCritic
+  from vision4leg_torch.starter import common
+  t0 = time.perf_counter()
+  net = ImpalaFuseResidualActorCritic(
+      **common.nature_kwargs(env, params),
+      generator=torch.Generator().manual_seed(33)).to(dev)
+  base = common.ppo_config(params)
+  cfg = ppo_aux.PPOAuxConfig(**dataclasses.asdict(base), aux_coeff=1.0)
+  horizon = base.epoch_frames // NUM_ENVS
+  rollout = collection_rollout(env, meta, params,
+                               lambda x: (net.pi(x), net.v(x)), net.v,
+                               horizon)
+  traj, last_v, coll = timed_rollout(env, rollout, 33, dev)
+  zero_counts()
+  t = time.perf_counter()
+  sd, metrics, _ = run_update(ppo_aux.PPOAuxLearner, cfg, net, traj, last_v,
+                              None, [list(range(horizon))] * cfg.opt_epochs,
+                              pi_aux=True)
+  torch.cuda.synchronize()
+  upd = dict(read_counts(), seconds=time.perf_counter() - t)
+  paths = {"PPO-aux (Impala) collection": coll, "PPO-aux update": upd}
+  rows = max(cfg.batch_size // NUM_ENVS, 1)
+  n_mb = cfg.opt_epochs * (horizon // rows)
+  bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+  init = net.state_dict()
+  moved = sum(not torch.equal(v, init[k]) for k, v in sd.items())
+  log(f"[PPO-aux] rollout {horizon} x {NUM_ENVS} in {coll['seconds']:.3f}s"
+      f", update ({n_mb} minibatches of {rows * NUM_ENVS}) in "
+      f"{upd['seconds']:.3f}s on {card}; launches {paths}; aux_loss "
+      f"{metrics['Training/aux_loss']:.5f}, {moved}/{len(sd)} tensors moved")
+  want = {"physics_window": horizon, "transformer_layer": 0,
+          "transformer_layer_bwd": 0}
+  if ({k: coll[k] for k in want} != want or any(
+      upd[k] for k in want) or bad or moved != len(sd)):
+    raise AssertionError(f"[PPO-aux] launches {paths}, non-finite {bad}, "
+                         f"moved {moved}")
+  n = F64_ENVS * F64_AUX_STEPS
+  f64 = float64_card_vs_cpu(
+      "PPO-aux", {"PPO-aux": (ppo_aux.PPOAuxLearner, dataclasses.replace(
+          cfg, batch_size=n, epoch_frames=n))}, net, traj, last_v,
+      F64_ENVS, F64_AUX_STEPS, pi_aux=True)
+  dt = time.perf_counter() - t0
+  log(f"[PPO-aux] phase 33 in {dt:.2f}s")
+  return paths, dict(collect_s=coll["seconds"], update_s=upd["seconds"],
+                     minibatches=n_mb, metrics=metrics, float64=f64,
+                     seconds=dt)
+
+
+def det_acting(m, obs, sigma=0.1):
+  """A deterministic tanh policy in the agent's Gaussian acting interface:
+  tanh(atanh(a) + sigma n), TD3's additive exploration noise
+  (tests/test_off_policy_learning.py)."""
+  import torch
+  a = torch.clamp(m(obs), -0.999, 0.999)
+  return torch.atanh(a), torch.full_like(a, sigma), None
+
+
+def off_policy_learners(obs_dim, act_dim, gen):
+  """{name: (learner, its state's networks on the CPU, acting function)}
+  of TwinSACQ, TD3, DDPG and SAC at (256, 256) with the OffPolicyConfig
+  defaults; SAC's V(s) is a one-output MLP."""
+  from vision4leg_torch.algo.off_policy import learners as ol
+  from vision4leg_torch.models import off_policy_nets as nets
+  cfg = ol.OffPolicyConfig()
+  pf = lambda: nets.TanhGaussianPolicy(obs_dim, act_dim, generator=gen)
+  det = lambda: nets.DetTanhPolicy(obs_dim, act_dim, generator=gen)
+  q = lambda: nets.QNet(obs_dim, act_dim, generator=gen)
+  v = lambda: nets.DiscreteQNet(obs_dim, 1, generator=gen)
+  gauss = lambda m, o: m(o)
+  apply_q = lambda m, o, a: m(o, a)
+  return {
+      "TwinSACQ": (ol.TwinSACQLearner(cfg, gauss, apply_q, act_dim),
+                   (pf(), q(), q()), gauss),
+      "TD3": (ol.TD3Learner(cfg, gauss, apply_q), (det(), q(), q()),
+              det_acting),
+      "DDPG": (ol.DDPGLearner(cfg, gauss, apply_q), (det(), q()),
+               det_acting),
+      "SAC": (ol.SACLearner(cfg, gauss, apply_q, gauss, act_dim),
+              (pf(), q(), v()), gauss)}
+
+
+def copy_state(learner, state, dev, dtype):
+  """A fresh state of `learner` (its Adam states at init) on copies of the
+  networks and targets of `state`, on dev in dtype."""
+  import copy
+  nets = [copy.deepcopy(m).to(dev, dtype) for m in state.params.values()]
+  out = learner.init_state(*nets)
+  for k, m in out.target_params.items():
+    m.load_state_dict(state.target_params[k].state_dict())
+  return out
+
+
+def off_policy_float64(learner, state, batch, draws, label):
+  """One update from `batch` with `draws` in float64 on the card and on
+  the CPU, from copies of `state`'s networks: the largest relative
+  difference over every network, target and metric, held to
+  OFF_F64_REL."""
+  import torch
+  got = {}
+  for dev in (CARD_DEVICE, "cpu"):
+    st = copy_state(learner, state, dev, torch.float64)
+    b = {k: (v.to(dev, torch.float64) if v.is_floating_point()
+             else v.to(dev)) for k, v in batch.items()}
+    d = None if draws is None else {k: v.to(dev, torch.float64)
+                                    for k, v in draws.items()}
+    st, metrics = learner.update(st, b, draws=d)
+    flat = {f"{side}.{n}.{k}": v for side, nets in (
+        ("params", st.params), ("targets", st.target_params))
+        for n, m in nets.items() for k, v in m.state_dict().items()}
+    got[dev] = (flat, {k: float(v) for k, v in metrics.items()})
+  err = rel_diff(got[CARD_DEVICE][0], got["cpu"][0])
+  m_err = max(abs(got[CARD_DEVICE][1][k] - v) / max(abs(v), 1e-300)
+              for k, v in got["cpu"][1].items())
+  log(f"[off-policy] {label} one float64 update on the card vs the CPU: "
+      f"largest difference {err:.3e} of the largest parameter (networks "
+      f"and targets), metrics {m_err:.3e} relative (gate "
+      f"{OFF_F64_REL:g})")
+  if not (err <= OFF_F64_REL and m_err <= OFF_F64_REL):
+    raise AssertionError(f"[off-policy] {label} float64 card/CPU update "
+                         f"parts by {err:.3e} / {m_err:.3e}")
+  return dict(rel=err, metric_rel=m_err)
+
+
+def phase_off_policy(card, dev):
+  """Phase 34: state-only-baseline.json's env at NUM_ENVS envs with its
+  terrain_type changed to thin-goal's random_blocks_sparse_with_subgoal
+  (so that the window kernel carries every step), an OffPolicyAgent with
+  a 2**20-transition replay on the card for each of TwinSACQ, TD3, DDPG
+  and SAC at (256, 256) (the OffPolicyConfig defaults, batch 256):
+  pretrain OFF_POLICY_STEPS steps, then train_epoch of OFF_POLICY_STEPS x
+  NUM_ENVS frames, one update a step; the replay's size and update_count
+  exact, row 1 once a step; each learner's single update from one replay
+  sample with injected draws in float64 on the card against the CPU
+  (OFF_F64_REL); the DQN learner in its three modes, one update each on
+  seeded batches of the obs width at batch 256, the same gate."""
+  import torch
+  from vision4leg_torch.algo.off_policy import learners as ol
+  from vision4leg_torch.algo.off_policy.agent import OffPolicyAgent
+  from vision4leg_torch.data import replay as replay_lib
+  from vision4leg_torch.models import off_policy_nets as nets
+  t0 = time.perf_counter()
+  env, _, _ = build_env(STATE_CONFIG, dev, OFF_POLICY_OVERRIDES)
+  if not env.kernel_capable:
+    raise AssertionError("[off-policy] the env does not take the window")
+  obs_dim, act_dim = env.obs_dim, env.cfg.action_dim
+  frames = OFF_POLICY_STEPS * NUM_ENVS
+  paths, out = {}, {}
+  gen = torch.Generator().manual_seed(34)
+  for name, (learner, cpu_nets, acting) in off_policy_learners(
+      obs_dim, act_dim, gen).items():
+    state = learner.init_state(*[m.to(dev) for m in cpu_nets])
+    agent = OffPolicyAgent(env=env, learner=learner, learner_state=state,
+                           apply_pf=acting, num_envs=NUM_ENVS,
+                           replay_capacity=REPLAY_CAPACITY, seed=34,
+                           pretrain_frames=frames, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    agent.pretrain()
+    torch.cuda.synchronize()
+    dt_p = time.perf_counter() - t
+    size_p = agent.replay.size
+    t = time.perf_counter()
+    avg_rew, infos = agent.train_epoch(frames)
+    torch.cuda.synchronize()
+    dt_e = time.perf_counter() - t
+    counts = read_counts()
+    paths[f"off-policy {name} pretrain + epoch"] = dict(
+        counts, seconds=dt_p + dt_e)
+    count = agent.learner_state.update_count
+    bad = [k for k, v in infos.items() if not math.isfinite(v)]
+    log(f"[off-policy] {name}: pretrain {OFF_POLICY_STEPS} steps x "
+        f"{NUM_ENVS} envs in {dt_p:.3f}s, train_epoch({frames}) in "
+        f"{dt_e:.3f}s ({frames / dt_e:.1f} env-steps/s, one update of "
+        f"{learner.cfg.batch_size} a step) on {card}; replay size "
+        f"{size_p} then {agent.replay.size} of {REPLAY_CAPACITY}, "
+        f"update_count {count}; launches {counts}; mean reward "
+        f"{avg_rew:.4f}; metrics {json.dumps(infos)}")
+    if (size_p != frames or agent.replay.size != 2 * frames
+        or count != OFF_POLICY_STEPS or bad or not math.isfinite(avg_rew)
+        or counts != {"physics_window": 2 * OFF_POLICY_STEPS,
+                      "transformer_layer": 0, "transformer_layer_bwd": 0}):
+      raise AssertionError(f"[off-policy] {name} epoch check failed")
+    g = torch.Generator().manual_seed(35)
+    B = learner.cfg.batch_size
+    idx = torch.randint(0, agent.replay.size, (B,), generator=g)
+    batch = replay_lib.sample(agent.replay, B, idx=idx.to(dev))
+    draws = {k: torch.randn(B, act_dim, generator=g, dtype=torch.float64)
+             for k in ("noise", "next_noise")}
+    out[name] = dict(pretrain_s=dt_p, epoch_s=dt_e, replay_size=size_p,
+                     update_count=count, avg_reward=avg_rew,
+                     float64=off_policy_float64(
+                         learner, agent.learner_state, batch, draws, name))
+    del agent, state, batch
+    torch.cuda.empty_cache()
+  cfg = ol.OffPolicyConfig()
+  B = cfg.batch_size
+  g = torch.Generator().manual_seed(36)
+  batch = {"obs": torch.randn(B, obs_dim, generator=g),
+           "acts": torch.randint(0, DQN_ACTIONS, (B,), generator=g),
+           "next_obs": torch.randn(B, obs_dim, generator=g),
+           "rewards": torch.randn(B, 1, generator=g),
+           "terminals": (torch.rand(B, 1, generator=g) < 0.1).float()}
+  for mode, net in (
+      ("dqn", nets.DiscreteQNet(obs_dim, DQN_ACTIONS, generator=g)),
+      ("qrdqn", nets.DiscreteQNet(obs_dim, DQN_ACTIONS,
+                                  num_quantiles=cfg.num_quantiles,
+                                  generator=g)),
+      ("bootstrapped", nets.BootstrappedQNet(obs_dim, DQN_ACTIONS,
+                                             cfg.num_heads, generator=g))):
+    learner = ol.DQNLearner(cfg, lambda m, o: m(o), mode=mode)
+    b = dict(batch)
+    if mode == "bootstrapped":
+      b["masks"] = (torch.rand(B, cfg.num_heads, generator=g) < 0.5).float()
+    out[f"DQN {mode}"] = dict(float64=off_policy_float64(
+        learner, learner.init_state(net), b, None, f"DQN ({mode})"))
+  dt = time.perf_counter() - t0
+  log(f"[off-policy] phase 34 in {dt:.2f}s")
+  out["seconds"] = dt
+  return paths, out
+
+
+def phase_hierarchical(card, dev):
+  """Phase 35: phase 34's env at NUM_ENVS envs, a frozen low-level
+  StateActorCritic at (256, 256) on [cos, sin, proprio] and a high level
+  at (256, 256) on the full observation (seeded weights); one 16-step
+  hierarchical rollout (row 1 once a step), the stored actions 1-dim; one
+  PPO epoch on the high level (state-only-baseline.json's ppo section);
+  the act_fn on the card against a CPU copy on the same observations and
+  noise within HIER_ACT_TOL."""
+  import copy
+
+  import torch
+  from vision4leg_torch.algo.ppo import PPOLearner
+  from vision4leg_torch.collector import hierarchical
+  from vision4leg_torch.models.actor_critic import StateActorCritic
+  from vision4leg_torch.starter import common
+  t0 = time.perf_counter()
+  env, meta, params = build_env(STATE_CONFIG, dev, OFF_POLICY_OVERRIDES)
+  proprio = env.cfg.proprio_dim
+  g = torch.Generator().manual_seed(35)
+  W = dict(hidden_shapes=(256, 256), append_hidden_shapes=(256, 256))
+  low = StateActorCritic(env.cfg.action_dim, proprio + 2, **W,
+                         generator=g).to(dev).eval()
+  high = StateActorCritic(1, env.obs_dim, **W, generator=g).to(dev)
+  cfg = common.ppo_config(params)
+  horizon = cfg.epoch_frames // NUM_ENVS
+  rollout = hierarchical.make_hierarchical_rollout_fn(
+      env, high.pi, high.v, low.pi, horizon=horizon,
+      max_episode_frames=params["collector"]["max_episode_frames"],
+      discount=params["general_setting"]["discount"], proprio_dim=proprio,
+      obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"])
+  low0 = {k: v.clone() for k, v in low.state_dict().items()}
+  traj, last_v, coll = timed_rollout(env, rollout, 35, dev)
+  paths = {"hierarchical collection": coll}
+  learner = PPOLearner(cfg, lambda m, x: m.pi(x), lambda m, x: m.v(x), high)
+  h0 = {k: v.clone() for k, v in high.state_dict().items()}
+  t = time.perf_counter()
+  _, metrics = learner.update_per_epoch(
+      learner.init_state(high), traj, last_v,
+      gen=torch.Generator(device=dev).manual_seed(35))
+  torch.cuda.synchronize()
+  dt_u = time.perf_counter() - t
+  metrics = {k: float(v) for k, v in metrics.items()}
+  moved = sum(not torch.equal(v, h0[k]) for k, v in high.state_dict().items())
+  # the act path on the card against a CPU copy, same obs and noise
+  act = hierarchical.make_hierarchical_act_fn(
+      high.pi, low.pi, proprio, env.action_low, env.action_high)
+  chigh, clow = copy.deepcopy(high).cpu(), copy.deepcopy(low).cpu()
+  cact = hierarchical.make_hierarchical_act_fn(
+      chigh.pi, clow.pi, proprio, env.action_low.cpu(),
+      env.action_high.cpu())
+  noise = torch.randn(NUM_ENVS, 1,
+                      generator=torch.Generator().manual_seed(36))
+  with torch.no_grad():
+    a = act(traj.obs[-1], None, noise=noise.to(dev))
+    b = cact(traj.obs[-1].cpu(), None, noise=noise)
+  act_err = max(float((x.cpu() - y).abs().max()) for x, y in zip(a, b))
+  log(f"[hierarchical] rollout {horizon} x {NUM_ENVS} in "
+      f"{coll['seconds']:.3f}s, PPO epoch on the high level in {dt_u:.3f}s "
+      f"on {card}; launches {coll}; stored actions "
+      f"{tuple(traj.acts.shape)}; act_fn card vs CPU {act_err:.3e} (tol "
+      f"{HIER_ACT_TOL:g}); high level {moved}/{len(h0)} tensors moved; "
+      f"policy_loss {metrics['Training/policy_loss']:.5f}")
+  want = {"physics_window": horizon, "transformer_layer": 0,
+          "transformer_layer_bwd": 0}
+  if ({k: coll[k] for k in want} != want
+      or traj.acts.shape != (horizon, NUM_ENVS, 1)
+      or not act_err <= HIER_ACT_TOL or not moved
+      or any(not torch.equal(v, low0[k]) for k, v in low.state_dict().items())
+      or not all(math.isfinite(v) for v in metrics.values())):
+    raise AssertionError("[hierarchical] check failed")
+  dt = time.perf_counter() - t0
+  log(f"[hierarchical] phase 35 in {dt:.2f}s")
+  return paths, dict(collect_s=coll["seconds"], update_s=dt_u,
+                     act_err=act_err, metrics=metrics, seconds=dt)
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -3296,7 +3967,28 @@ def main() -> int:
   tg_launches, tg_rate = phase_trajectory_generator(card, dev)
   torch.cuda.empty_cache()
 
-  # --- 32. results ----------------------------------------------------------
+  # --- 32. the on-policy family: A2C, REINFORCE, V-MPO, TRPO --------------
+  new_paths = {}
+  paths_32, on_policy = phase_on_policy_family(env, meta, params, card, dev)
+  new_paths.update(paths_32)
+  torch.cuda.empty_cache()
+
+  # --- 33. PPO-aux on the Impala backbone ---------------------------------
+  paths_33, ppo_aux_run = phase_ppo_aux(env, meta, params, card, dev)
+  new_paths.update(paths_33)
+  torch.cuda.empty_cache()
+
+  # --- 34. the off-policy family on the device replay ---------------------
+  paths_34, off_policy = phase_off_policy(card, dev)
+  new_paths.update(paths_34)
+  torch.cuda.empty_cache()
+
+  # --- 35. the hierarchical collector -------------------------------------
+  paths_35, hier = phase_hierarchical(card, dev)
+  new_paths.update(paths_35)
+  torch.cuda.empty_cache()
+
+  # --- 36. results ----------------------------------------------------------
   # launches: the sum over the paths that run a kernel, each read just
   # after it was driven with the counts at 0 (by path beside it)
   by_path = {k: {n: v[n] for n in ("physics_window", "physics_window_settle",
@@ -3325,6 +4017,9 @@ def main() -> int:
       n: tg_launches[n] for n in ("physics_window", "transformer_layer")}
   by_path["16-channel LocoTransformer pi_v (T 33)"] = dict(
       physics_window=0, **t33_launches)
+  by_path.update({k: {n: v[n] for n in ("physics_window", "transformer_layer",
+                                        "transformer_layer_bwd")}
+                  for k, v in new_paths.items()})
   total = lambda name: sum(v.get(name, 0) for v in by_path.values())
   row1_paths = {k: v["physics_window"] for k, v in by_path.items()
                 if "MPC" not in k}
@@ -3348,8 +4043,11 @@ def main() -> int:
              "thin-wide, interpolation and fixed-delay, stairs and "
              "chair_desk, thin-random-shape, sim2sim, float32 and bf16, "
              "action-filter, sphere-terrain (8 of 50 spheres an env), "
-             "random_dir + rotate_sensor, multi_stairs, random_blocks and "
-             "trajectory-generator collections), 32 (the JAX-trained "
+             "random_dir + rotate_sensor, multi_stairs, random_blocks, "
+             "trajectory-generator, on-policy family, PPO-aux (Impala) and "
+             "hierarchical collections; the off-policy agents' pretrain "
+             "and epoch steps on state-only with random_blocks_sparse_with_"
+             "subgoal), 32 (the JAX-trained "
              f"{JAX_RUN_ID} eval), 2 (its viewer), 1 (the env viewer) and "
              "8 (eval, the sim2sim transfer env's among them); the MPC "
              "resets' settles "
@@ -3368,7 +4066,9 @@ def main() -> int:
                     "non-float32 input (vision4leg_tpu/models/base.py:"
                     "233-238); the float32 collection beside it launches",
       shapes=f"(B, T, 64), F 256: T 17 at B 1024, 8 (eval), 32 (the "
-             f"JAX-trained eval) and the update's minibatch {minibatch}; T "
+             f"JAX-trained eval), the update's minibatch {minibatch} and the "
+             f"A2C, REINFORCE and V-MPO updates' 1024 (V-MPO's policy on "
+             f"its top half, 512); T "
              f"16 (vision-only) at the same; T 33 (the 16-channel "
              f"LocoTransformer, the large instantiation) at B 1024; checked "
              f"also at B 1000 and 512 (T 17), 512 (T 16), 8 (T 33)",
@@ -3378,7 +4078,9 @@ def main() -> int:
       replaces="vision4leg_tpu/ops/attention.py:149 (_ad_bwd :178)",
       launches=total("transformer_layer_bwd"),
       launches_by_path=layer_paths("transformer_layer_bwd"),
-      shapes=f"the update's minibatch {minibatch} at T 17 and 16; checked "
+      shapes=f"the update's minibatch {minibatch} at T 17 and 16, the "
+             f"A2C, REINFORCE and V-MPO updates' 1024 (V-MPO's policy 512) "
+             f"at T 17; checked "
              f"also at B 1000, 512 and 8, and at T 33 at B 1024 and 8",
       at_33_tokens={k: {n: v[n] for n in ("ad_ms", "plain_ad_ms",
                                           "library_ad_ms", "ad_bound_ms")}
@@ -3436,7 +4138,13 @@ def main() -> int:
                         k: dict(v, env_steps_per_s=r)
                         for k, (v, r) in terrains.items()},
                     "trajectory_generator_collection": dict(
-                        tg_launches, env_steps_per_s=tg_rate)}),
+                        tg_launches, env_steps_per_s=tg_rate),
+                    "new_paths_seconds": {k: v["seconds"]
+                                          for k, v in new_paths.items()},
+                    "on_policy_family": on_policy,
+                    "ppo_aux": ppo_aux_run,
+                    "off_policy": off_policy,
+                    "hierarchical": hier}),
         flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,7 +56,20 @@ for n in ("vision4leg_torch.algo.agent",
           "vision4leg_torch.starter.nature_cnn_vision_only_viewer",
           "vision4leg_torch.starter.state_policy_viewer",
           "vision4leg_torch.starter.total_randomize_statistics",
-          "vision4leg_torch.starter.convert_jax_run"):
+          "vision4leg_torch.starter.convert_jax_run",
+          "vision4leg_torch.algo.a2c",
+          "vision4leg_torch.algo.vmpo",
+          "vision4leg_torch.algo.trpo",
+          "vision4leg_torch.algo.ppo_aux",
+          "vision4leg_torch.algo.off_policy.agent",
+          "vision4leg_torch.algo.off_policy.learners",
+          "vision4leg_torch.models.off_policy_nets",
+          "vision4leg_torch.models.discrete_policies",
+          "vision4leg_torch.models.distributions",
+          "vision4leg_torch.data.replay",
+          "vision4leg_torch.collector.host",
+          "vision4leg_torch.collector.hierarchical",
+          "vision4leg_torch.collector.atari"):
   assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -73,6 +86,52 @@ def test_port_and_smoke_script_import_without_jax():
   assert proc.returncode == 0, proc.stderr
   n = int(proc.stdout.split()[1])
   assert n >= 20
+
+
+_BLOCK_GYMNASIUM = r"""
+import importlib, pkgutil, sys
+
+class Block:
+  def find_spec(self, name, path=None, target=None):
+    if name.split(".")[0] in ("gymnasium", "gym", "ale_py", "jax", "jaxlib",
+                              "flax", "vision4leg_tpu"):
+      raise ImportError(f"blocked import of {name}")
+    return None
+
+sys.meta_path.insert(0, Block())
+import vision4leg_torch
+names = [m.name for m in pkgutil.walk_packages(vision4leg_torch.__path__,
+                                               "vision4leg_torch.")]
+atari = "vision4leg_torch.collector.atari"
+assert atari in names
+for n in names:
+  if n != atari:
+    importlib.import_module(n)
+try:
+  importlib.import_module(atari)
+except ImportError as e:
+  assert "gymnasium" in str(e), str(e)
+else:
+  raise AssertionError("collector.atari imported without gymnasium")
+from vision4leg_torch.collector import host
+try:
+  host.make_vec_env("Pendulum-v1", 1)
+except ImportError as e:
+  assert "gymnasium" in str(e), str(e)
+else:
+  raise AssertionError("make_vec_env ran without gymnasium")
+print("imported", len(names) - 1, "modules")
+"""
+
+
+def test_only_the_atari_wrappers_need_gymnasium():
+  """With gymnasium (and gym, ale_py) blocked, every port module but
+  collector/atari.py imports; that one, and host.make_vec_env, raise an
+  ImportError that names gymnasium.  The card has no gymnasium."""
+  proc = subprocess.run([sys.executable, "-c", _BLOCK_GYMNASIUM], cwd=ROOT,
+                        capture_output=True, text=True, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert int(proc.stdout.split()[1]) >= 20
 
 
 def test_default_device_entry_points_raise_without_a_card():
@@ -117,6 +176,13 @@ def test_default_device_entry_points_raise_without_a_card():
   with pytest.raises(RuntimeError, match="no CUDA device"):
     PPOAgent(env=env, ac_module=None, cfg=PPOConfig(), num_envs=4, seed=0,
              logger=None, save_dir="unused")
+  from vision4leg_torch.algo.off_policy.agent import OffPolicyAgent
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    OffPolicyAgent(env=env, learner=None, learner_state=None,
+                   apply_pf=None, num_envs=4, replay_capacity=8, seed=0)
+  from vision4leg_torch.collector.host import HostOnPolicyCollector
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    HostOnPolicyCollector(None, None, None)
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,6 +41,7 @@ class OnPolicyConfig:
   grad_clip: float = 0.5
   adam_eps: float = 1e-5
   opt_epochs: int = 1
+  lr_decay: bool = True      # linear schedule (PPO/TRPO yes, VMPO no)
 
 
 def param_labels(module: nn.Module, vf_prefixes=("vf",),
@@ -76,8 +77,9 @@ class MaskedAdam:
   scale_by_learning_rate(schedule))) of the JAX package
   (`make_masked_adam`).  Each step clips the global norm of the set's
   gradients, applies Adam (eps outside the square root, bias-corrected
-  moments) and the linear schedule
-  base_lr * (1 - (count // updates_per_epoch) / num_epochs)."""
+  moments) and, with cfg.lr_decay, the linear schedule
+  base_lr * (1 - (count // updates_per_epoch) / num_epochs); without it
+  the base rate."""
 
   B1, B2 = 0.9, 0.999
 
@@ -94,6 +96,8 @@ class MaskedAdam:
         cfg.opt_epochs * (cfg.epoch_frames // cfg.batch_size), 1)
 
   def lr(self, count: int) -> float:
+    if not self.cfg.lr_decay:
+      return self.base_lr
     epoch = count // self.updates_per_epoch
     return self.base_lr * (1.0 - epoch / self.cfg.num_epochs)
 
@@ -112,18 +116,48 @@ class MaskedAdam:
     clip = self.cfg.grad_clip
     factor = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
     g = torch._foreach_mul(g, factor)
-    mu = torch._foreach_mul(state.mu, self.B1)
-    torch._foreach_add_(mu, g, alpha=1.0 - self.B1)
-    nu = torch._foreach_mul(state.nu, self.B2)
-    torch._foreach_addcmul_(nu, g, g, value=1.0 - self.B2)
-    count = state.count + 1
-    denom = torch._foreach_div(nu, 1.0 - self.B2 ** count)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, self.cfg.adam_eps)
-    step = torch._foreach_div(mu, 1.0 - self.B1 ** count)
-    torch._foreach_div_(step, denom)
-    torch._foreach_add_(self.params, step, alpha=-self.lr(state.count))
-    return AdamState(count=count, mu=mu, nu=nu)
+    return adam_step(self.params, g, state, self.lr(state.count),
+                     self.cfg.adam_eps)
+
+
+@torch.no_grad()
+def adam_step(params, g, state: AdamState, lr: float,
+              eps: float) -> AdamState:
+  """optax's scale_by_adam(b1 0.9, b2 0.999, eps) then -lr, applied to
+  `params` in place: eps outside the square root, bias-corrected
+  moments."""
+  b1, b2 = MaskedAdam.B1, MaskedAdam.B2
+  mu = torch._foreach_mul(state.mu, b1)
+  torch._foreach_add_(mu, g, alpha=1.0 - b1)
+  nu = torch._foreach_mul(state.nu, b2)
+  torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
+  count = state.count + 1
+  denom = torch._foreach_div(nu, 1.0 - b2 ** count)
+  torch._foreach_sqrt_(denom)
+  torch._foreach_add_(denom, eps)
+  step = torch._foreach_div(mu, 1.0 - b1 ** count)
+  torch._foreach_div_(step, denom)
+  torch._foreach_add_(params, step, alpha=-lr)
+  return AdamState(count=count, mu=mu, nu=nu)
+
+
+class Adam:
+  """optax.adam(lr, eps) over a list of tensors, updated in place; no
+  clipping, no schedule (the V-MPO duals, the off-policy learners)."""
+
+  def __init__(self, params, lr: float, eps: float = 1e-8):
+    self.params = list(params)
+    self.lr, self.eps = lr, eps
+
+  def init(self) -> AdamState:
+    return AdamState(count=0,
+                     mu=[torch.zeros_like(p) for p in self.params],
+                     nu=[torch.zeros_like(p) for p in self.params])
+
+  def update(self, grads, state: AdamState) -> AdamState:
+    g = [torch.zeros_like(p) if x is None else x
+         for x, p in zip(grads, self.params)]
+    return adam_step(self.params, g, state, self.lr, self.eps)
 
 
 @dataclasses.dataclass
@@ -132,6 +166,7 @@ class TrainState:
   pf_opt: AdamState
   vf_opt: AdamState
   epoch: int
+  extras: Any = None           # algo-specific (the V-MPO duals)
 
   def replace(self, **kw) -> "TrainState":
     return dataclasses.replace(self, **kw)
@@ -166,7 +201,11 @@ class OnPolicyLearner:
 
   def init_state(self, module: nn.Module) -> TrainState:
     return TrainState(params=module, pf_opt=self.pf_tx.init(),
-                      vf_opt=self.vf_tx.init(), epoch=0)
+                      vf_opt=self.vf_tx.init(), epoch=0,
+                      extras=self.init_extras())
+
+  def init_extras(self):
+    return None
 
   def _minibatch_update(self, ts: TrainState, batch):
     raise NotImplementedError
@@ -239,3 +278,11 @@ def normal_entropy(std):
   return torch.sum(0.5 + 0.5 * _LOG_2PI + torch.log(std), dim=-1,
                    keepdim=True)
 
+
+
+def normal_kl(mean_old, std_old, mean_new, std_new):
+  """KL(old || new) per sample, summed over action dims."""
+  return torch.sum(
+      torch.log(std_new) - torch.log(std_old)
+      + (std_old ** 2 + (mean_old - mean_new) ** 2) / (2.0 * std_new ** 2)
+      - 0.5, dim=-1, keepdim=True)

@@ -191,6 +191,18 @@ def encoder_from_flax(enc: Mapping) -> Dict[str, torch.Tensor]:
   return sd
 
 
+def _impala_from_flax(sd, prefix, p):
+  """flax ImpalaEncoder: Conv_i is stage i's conv, ImpalaResBlock_{2i},
+  _{2i+1} its blocks (Conv_0, Conv_1 each)."""
+  n = sum(1 for k in p if k.startswith("Conv_"))
+  for i in range(n):
+    _conv(sd, f"{prefix}.convs.{i}", p[f"Conv_{i}"])
+  for j in range(2 * n):
+    for c in (0, 1):
+      _conv(sd, f"{prefix}.blocks.{j}.conv{c}",
+            p[f"ImpalaResBlock_{j}"][f"Conv_{c}"])
+
+
 def _nature_heads_from_flax(sd, p):
   for side in ("pf", "vf"):
     _mlp(sd, f"{side}_mlp.layers", p[f"{side}_mlp"])
@@ -206,9 +218,18 @@ def params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
   torch LayerNorms use eps 1e-6 like flax's); NatureFuseActorCritic when
   the encoder has a Nature CNN and no transformer layers follow it;
   VisualNetActorCritic when a `backbone` takes the encoder's place;
-  StateActorCritic when an MLP `base` does."""
+  StateActorCritic when an MLP `base` does; ImpalaFuseResidualActorCritic
+  when a `visual_base` does."""
   p = np_params.get("params", np_params)
   sd: Dict[str, torch.Tensor] = {}
+  if "visual_base" in p:
+    _impala_from_flax(sd, "visual_base", p["visual_base"])
+    _dense(sd, "visual_proj.dense", p["visual_proj"]["Dense_0"])
+    _mlp(sd, "state_mlp.layers", p["state_mlp"])
+    for head in ("pf_fused", "pf_state", "vf_fused", "aux_head"):
+      _mlp(sd, f"{head}.layers", p[head])
+    sd["head.logstd"] = torch.tensor(np.asarray(p["head"]["logstd"]).copy())
+    return sd
   if "base" in p:
     _mlp(sd, "base.layers", p["base"])
     _nature_heads_from_flax(sd, p)
@@ -231,4 +252,18 @@ def params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
       _attention_layer(sd, f"{side}_layers.{li}", p[f"{side}_layers_{li}"])
     _mlp(sd, f"{side}_mlp.layers", p[f"{side}_mlp"])
   sd["logstd"] = torch.tensor(np.asarray(p["head"]["logstd"]).copy())
+  return sd
+
+
+def off_policy_params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
+  """state_dict of a models.off_policy_nets module (TanhGaussianPolicy,
+  DetTanhPolicy, QNet, DiscreteQNet, BootstrappedQNet) from the flax
+  module's params pulled to numpy: MLPBase_0 -> base, Dense_j ->
+  layers.j."""
+  p = np_params.get("params", np_params)
+  sd: Dict[str, torch.Tensor] = {}
+  _mlp(sd, "base.layers", p["MLPBase_0"])
+  n = sum(1 for k in p if k.startswith("Dense_"))
+  for j in range(n):
+    _dense(sd, f"layers.{j}", p[f"Dense_{j}"])
   return sd

@@ -6,7 +6,8 @@ and ppo_locotransformer_vision_only.py: one shared tokenizer, separate
 transformer stacks and MLP heads for policy and value) and the Nature-CNN
 baselines (NatureFuseActorCritic, VisualNetActorCritic; reference
 ppo_nature_cnn.py and ppo_nature_cnn_vision_only.py: one shared encoder,
-separate MLP heads).  Each policy has a learnable state-independent logstd
+separate MLP heads), and the ppo_aux backbone
+(ImpalaFuseResidualActorCritic).  Each policy has a learnable state-independent logstd
 initialized to log(0.125), clamped to [-5, 2] (continuous_policy.py:8-9,
 239-254).  The Nature-CNN models, like the JAX package's, have no `pi_v`
 and no fused layer."""
@@ -19,10 +20,13 @@ import torch
 from torch import nn
 
 from vision4leg_torch.models import init as winit
-from vision4leg_torch.models.base import (LocoTransformerEncoder, MLPBase,
+from vision4leg_torch.models.base import (ImpalaEncoder,
+                                          LocoTransformerEncoder, MLPBase,
                                           NatureEncoder, NatureFuseEncoder,
+                                          RLProjection,
                                           TransformerEncoderLayer,
-                                          VisionTokenEncoder, nature_out_dim)
+                                          VisionTokenEncoder, impala_out_dim,
+                                          nature_out_dim)
 
 LOG_SIG_MAX = 2.0
 LOG_SIG_MIN = -5.0
@@ -371,3 +375,71 @@ class VisualNetActorCritic(nn.Module):
   def v(self, x):
     """-> (B, 1) value."""
     return self.vf_mlp(self._features(x))
+
+
+class ImpalaFuseResidualActorCritic(nn.Module):
+  """ppo_aux backbone (nets.py:384-530 ImpalaFuseResidualActor; the JAX
+  package's ImpalaFuseResidualActorCritic): an Impala visual encoder
+  projected to visual_dim beside a proprio MLP; the actor's mean is the
+  sum of a fused (visual + state) head and a state-only residual head, and
+  the visual features also regress the displacement-sensor history, the
+  first history * displacement_dim proprio inputs (the aux loss,
+  :488-530)."""
+
+  def __init__(self, action_dim: int, state_input_shape: int,
+               visual_input_shape: Tuple[int, int, int] = (4, 64, 64),
+               encoder_hidden_shapes: Sequence[int] = (256, 256),
+               visual_dim: int = 256,
+               append_hidden_shapes: Sequence[int] = (256, 256),
+               displacement_dim: int = 7, history: int = 3,
+               log_init: float = 0.125,
+               generator: torch.Generator | None = None):
+    super().__init__()
+    self.state_input_shape = state_input_shape
+    self.visual_input_shape = tuple(visual_input_shape)
+    self.aux_dim = displacement_dim * history
+    self.visual_base = ImpalaEncoder(visual_input_shape[0])
+    self.visual_proj = RLProjection(impala_out_dim(visual_input_shape),
+                                    visual_dim)
+    self.state_mlp = MLPBase(state_input_shape, encoder_hidden_shapes)
+    fused = visual_dim + self.state_mlp.out_dim
+    self.head = GaussianHead(action_dim, log_init)
+    self.pf_fused = MLPHead(fused, append_hidden_shapes, action_dim)
+    self.pf_state = MLPHead(self.state_mlp.out_dim, append_hidden_shapes,
+                            action_dim)
+    self.vf_fused = MLPHead(fused, append_hidden_shapes, 1)
+    self.aux_head = MLPHead(visual_dim, (), self.aux_dim)
+    if generator is not None:
+      self.init_weights(generator)
+
+  def init_weights(self, gen: torch.Generator):
+    """The reference's initializers, drawn from `gen`."""
+    self.visual_base.init_weights(gen)
+    self.visual_proj.init_weights(gen)
+    self.state_mlp.init_weights(gen)
+    for head in (self.pf_fused, self.pf_state, self.vf_fused, self.aux_head):
+      head.init_weights(gen)
+
+  def _features(self, x):
+    state_x = x[..., : self.state_input_shape]
+    visual_x = x[..., self.state_input_shape:].reshape(
+        x.shape[:-1] + self.visual_input_shape)
+    v = self.visual_proj(self.visual_base(visual_x))
+    return v, self.state_mlp(state_x), state_x
+
+  def pi_with_aux(self, x):
+    """-> ((mean, std, logstd), aux_loss)."""
+    v, s, state_x = self._features(x)
+    mean = self.pf_fused(torch.cat([v, s], dim=-1)) + self.pf_state(s)
+    disp_gt = state_x[..., : self.aux_dim]
+    aux_loss = torch.mean((self.aux_head(v) - disp_gt) ** 2)
+    return self.head(mean), aux_loss
+
+  def pi(self, x):
+    """-> (mean, std, logstd)."""
+    return self.pi_with_aux(x)[0]
+
+  def v(self, x):
+    """-> (B, 1) value."""
+    v, s, _ = self._features(x)
+    return self.vf_fused(torch.cat([v, s], dim=-1))

@@ -60,6 +60,63 @@ def nature_out_dim(visual_input_shape) -> int:
   return 64 * h * w
 
 
+class ImpalaResBlock(nn.Module):
+  """x + conv(relu(conv(relu(x)))), 3x3 convs with padding 1; every
+  Impala conv xavier-uniform with zero bias, as the reference applies
+  xavier_uniform_init (base.py:171)."""
+
+  def __init__(self, feats: int):
+    super().__init__()
+    self.conv0 = nn.Conv2d(feats, feats, 3, padding=1)
+    self.conv1 = nn.Conv2d(feats, feats, 3, padding=1)
+
+  def init_weights(self, gen):
+    winit.xavier_uniform_(self.conv0, gen)
+    winit.xavier_uniform_(self.conv1, gen)
+
+  def forward(self, x):
+    h = self.conv0(torch.relu(x))
+    return x + self.conv1(torch.relu(h))
+
+
+IMPALA_FEATS = (16, 32, 32)
+
+
+class ImpalaEncoder(nn.Module):
+  """Residual conv stack (base.py:158-207): per stage a 3x3 conv, a 3/2
+  max-pool with symmetric padding 1 (torch MaxPool2d's, which the JAX
+  package pads explicitly) and two residual blocks; a final ReLU; the
+  output flattened in (C, H, W) order.  (B, C, H, W) -> (B, out_dim)."""
+
+  def __init__(self, in_channels: int):
+    super().__init__()
+    dims = [in_channels, *IMPALA_FEATS]
+    self.convs = nn.ModuleList(nn.Conv2d(a, b, 3, padding=1)
+                               for a, b in zip(dims[:-1], dims[1:]))
+    self.blocks = nn.ModuleList(ImpalaResBlock(f) for f in IMPALA_FEATS
+                                for _ in range(2))
+
+  def init_weights(self, gen):
+    for i, conv in enumerate(self.convs):
+      winit.xavier_uniform_(conv, gen)
+      self.blocks[2 * i].init_weights(gen)
+      self.blocks[2 * i + 1].init_weights(gen)
+
+  def forward(self, x):
+    for i, conv in enumerate(self.convs):
+      x = torch.nn.functional.max_pool2d(conv(x), 3, 2, padding=1)
+      x = self.blocks[2 * i + 1](self.blocks[2 * i](x))
+    return torch.relu(x).flatten(1)
+
+
+def impala_out_dim(visual_input_shape) -> int:
+  """Width of ImpalaEncoder's flattened output on (C, H, W) inputs."""
+  _, h, w = visual_input_shape
+  for _ in IMPALA_FEATS:
+    h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+  return IMPALA_FEATS[-1] * h * w
+
+
 class RLProjection(nn.Module):
   """Linear + ReLU projection (base.py:209-230)."""
 

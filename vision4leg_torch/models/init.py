@@ -43,3 +43,10 @@ def lecun_normal_(layer: nn.Linear, gen: torch.Generator):
   nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std,
                         generator=gen)
   nn.init.zeros_(layer.bias)
+
+
+@torch.no_grad()
+def xavier_uniform_(layer: nn.Module, gen: torch.Generator):
+  """Xavier-uniform weight, zero bias (the Impala convs)."""
+  nn.init.xavier_uniform_(layer.weight, generator=gen)
+  nn.init.zeros_(layer.bias)

@@ -426,7 +426,17 @@ fused_transformer_layer_bwd.launches = 0
 class _FusedLayerAD(torch.autograd.Function):
   """Forward: the layer, saving its residuals; backward:
   `fused_transformer_layer_bwd` on them (the gradient of the JAX
-  package's `_ad_bwd`, with nothing recomputed)."""
+  package's `_ad_bwd`, with nothing recomputed).
+
+  The backward carries no graph, so the layer is once-differentiable: a
+  backward asked to build a graph (create_graph=True: a Hessian-vector
+  product, TRPO's Fisher-vector product) raises, as forward-mode
+  differentiation of the JAX custom_vjp layer does, instead of giving a
+  second derivative that is silently wrong.  It raises there, at the
+  first backward, rather than through torch's once_differentiable: that
+  one errs only if the second backward runs its error node, and a second
+  grad taken with allow_unused=True never does (it returns None, read as
+  zero)."""
 
   @staticmethod
   def forward(ctx, x, *w):
@@ -436,6 +446,11 @@ class _FusedLayerAD(torch.autograd.Function):
 
   @staticmethod
   def backward(ctx, g):
+    if torch.is_grad_enabled():
+      raise RuntimeError(
+          "fused transformer layer: once-differentiable, no second "
+          "derivative (its backward runs on saved residuals); take "
+          "second derivatives through the unfused layer")
     saved = ctx.saved_tensors
     n = len(Residuals._fields)
     return fused_transformer_layer_bwd(
