@@ -272,7 +272,29 @@ Phases, each printed with the seconds since start:
      a frozen low level and a high level at (256, 256), a 16-step
      rollout (row 1), one PPO epoch on the high level; the stored actions
      1-dim, the act path on the card against the CPU within 1e-6;
- 36. one JSON line with every kernel's numbers (launches summed over the
+ 36. the deploy stack (`phase_deploy`): vision4leg_torch/hardware/
+     execute_locotransformer.py --fake-robot over a copy of the JAX-trained
+     runs/thin_goal_10M (read without JAX), DEPLOY_SECONDS of policy at
+     25 Hz between stand, warmup and sit; the layer kernel launched at
+     (1, 17) twice a tick and nothing else; the recorded observations'
+     actions on the card against the CPU's plain path within
+     DEPLOY_ACT_TOL; row 2 at (1, 17) and (3, 17) by `check_layer_case`
+     on their tokens and on three seeded observations' (samples that
+     differ everywhere), and timed at (1, 17) against its plain version
+     and the library layer; the tick's and the forward's median and p99;
+ 37. env-axis data parallelism (`phase_ranks`), every epoch with partial
+     resets at unequal counts a rank (`gated_epoch`): a world-1 NCCL
+     thin-goal epoch bit-equal to the unranked agent's (cuDNN
+     deterministic); two gloo ranks sharing the card at 2 x 512 envs,
+     fused, against one agent at 1024 from the same seed: the same
+     initial observations, each rank's launches of rows 1, 2 and 2ad
+     exact, the trajectory's terminals, reset observations, first
+     normalizer, action draws and first steps (RANK_GATED_FIELDS) the
+     unranked one's, the ranks' parameters the same bits, four fused
+     minibatches from one state within FUSED_UPDATE_BAND of the unranked
+     ones (phase 11's protocol), the later steps and the whole epoch's
+     difference printed;
+ 38. one JSON line with every kernel's numbers (launches summed over the
      paths, with each path's count and the shapes run), then the last
      line {"ok": true, "device": {...}}.
 
@@ -288,7 +310,8 @@ first two segments); the JAX-trained policy's eval 32 envs of 999 steps,
 its viewer 2 episodes; the env viewer 64 steps at one env; the on-policy
 family, PPO-aux and the hierarchical collector one epoch each, the
 off-policy learners 16 pretrain steps and one epoch of 16 steps each; the
-float64 card-vs-CPU updates the first 64 envs of 4 steps (PPO-aux: 2).
+float64 card-vs-CPU updates the first 64 envs of 4 steps (PPO-aux: 2);
+the deploy run 2 s of policy; the ranks one epoch.
 Widths are the configs' own.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
@@ -1661,18 +1684,20 @@ SPLIT_STEPS = 3        # steps timed for the non-flat step's split
 
 
 class StepSplit:
-  """The host-clock split of an env's steps: `step_batch`, `reset` and
-  the methods `spans` names are wrapped, each timed between
-  synchronizes.  `records` gets one dict per step_batch call (seconds by
-  span, and the label of the part of the run it belongs to), the resets
-  that follow it added to it as "resets"; spans inside a reset count as
-  the reset's only.  `mark(label)` labels the steps that follow and opens
-  a record for their first reset (an eval's)."""
+  """The host-clock split of an env's steps: `step_from`, `reset_from`
+  (which the collector calls, and `step_batch` and `reset` under them)
+  and the methods `spans` names are wrapped, each timed between
+  synchronizes.  `records` gets one dict per step (seconds by span, the
+  step's own under "step_from", and the label of the part of the run it
+  belongs to), the resets that follow it added to it as "resets"; spans
+  inside a reset count as the reset's only.  `mark(label)` labels the
+  steps that follow and opens a record for their first reset (an
+  eval's)."""
 
   def __init__(self, env, spans):
     self.env, self.records, self.stack = env, [], []
     self.label = "collection"
-    self.names = ("step_batch", "reset") + tuple(spans)
+    self.names = ("step_from", "reset_from") + tuple(spans)
     for name in self.names:
       setattr(env, name, self._wrap(name, getattr(env, name)))
 
@@ -1682,7 +1707,7 @@ class StepSplit:
     def run(*a, **kw):
       torch.cuda.synchronize()
       t = time.perf_counter()
-      if name == "step_batch":
+      if name == "step_from":
         self.records.append({"label": self.label})
       self.stack.append(name)
       try:
@@ -1691,11 +1716,11 @@ class StepSplit:
       finally:
         self.stack.pop()
       dt = time.perf_counter() - t
-      if name == "reset" or "reset" not in self.stack:
+      if name == "reset_from" or "reset_from" not in self.stack:
         if not self.records:
           self.records.append({"label": self.label})
         rec = self.records[-1]
-        key = "resets" if name == "reset" else name
+        key = "resets" if name == "reset_from" else name
         rec[key] = rec.get(key, 0.0) + dt
       return out
     return run
@@ -1736,7 +1761,7 @@ def time_nonflat_step(env, states, label):
     raise AssertionError(f"[{label}] non-finite observations")
   spent = lambda key: sum(r.get(key, 0.0) for r in split.records)
   ms = {"physics": spent("_engine_window"), "camera": spent("_render"),
-        "step": spent("step_batch")}
+        "step": spent("step_from")}
   ms = {k: v / SPLIT_STEPS * 1e3 for k, v in ms.items()}
   ms["rest"] = ms["step"] - ms["physics"] - ms["camera"]
   if env.cfg.get_image:
@@ -1941,14 +1966,14 @@ def phase_mpc_heightfield(card, dev):
     ms = {k: v * 1e3 for k, v in rec.items() if k != "label"}
     ticks = ms.get("_engine_ticks", 0.0)
     row = {"phase": rec["label"],
-           "step": ms.get("step_batch", 0.0),
+           "step": ms.get("step_from", 0.0),
            "engine": ticks - ms.get("controller_tick", 0.0),
            "controller": ms.get("controller_tick", 0.0),
            "camera": ms.get("_render", 0.0),
            "resets": ms.get("resets", 0.0)}
     row["rest"] = row["step"] - ticks - row["camera"]
     splits.append(row)
-    log(f"[{label}] {row['phase']} step on the host clock: step_batch "
+    log(f"[{label}] {row['phase']} step on the host clock: step "
         f"{row['step']:.1f} ms = engine ticks {row['engine']:.1f} + "
         f"controller {row['controller']:.1f} + camera {row['camera']:.1f} "
         f"+ rest {row['rest']:.1f}; then resets {row['resets']:.1f} ms")
@@ -2521,19 +2546,19 @@ def phase_spheres(card, dev):
 
 class DirWatch:
   """Records each RL step's RandoDir angle and count before and after
-  `step_batch` (installed on the env by `setup`), and checks them."""
+  `step_from` (installed on the env by `setup`), and checks them."""
 
   def setup(self, env):
     self.env, self.records = env, []
-    step = env.step_batch
+    step = env.step_from
 
-    def watched(states, actions, gen):
+    def watched(states, actions, draws):
       before = (states.dir_angle.clone(), states.dir_count.clone())
-      out = step(states, actions, gen)
+      out = step(states, actions, draws)
       self.records.append(before + (out[0].dir_angle.clone(),
                                     out[0].dir_count.clone()))
       return out
-    env.step_batch = watched
+    env.step_from = watched
 
   def check(self, env, cs, traj):
     """The observation width is the JAX formula's; every step counts one
@@ -2541,7 +2566,7 @@ class DirWatch:
     interval divides (a redrawn angle is a new draw: equal with
     probability 0); the (cos, sin) prefix is unit."""
     import torch
-    del env.step_batch
+    del env.step_from
     cfg = env.cfg
     want = 2 + 12 + 36 + 3 * 7 + (36 if cfg.add_last_action_input else 0) \
         + (6 if cfg.goal else 0) + cfg.image_dim
@@ -2596,14 +2621,19 @@ HILL_CONFIG = "config/rl/challenge/locotransformer/hill.json"
 RGBD_PI_V_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def copy_jax_run(tmp):
-  """A copy of the committed JAX run JAX_RUN under tmp/JAX_RUN_ID (the
-  starters' log_dir/id/env_name/seed layout); returns its work dir."""
-  import shutil
+def copy_run(tmp, run, run_id):
+  """A copy of the committed run `run` under tmp/run_id/A1MoveGround/0
+  (the starters' log_dir/id/env_name/seed layout); returns its work
+  dir."""
   root = os.path.dirname(os.path.abspath(__file__))
-  work = os.path.join(tmp, JAX_RUN_ID, "A1MoveGround", "0")
-  shutil.copytree(os.path.join(root, JAX_RUN), work)
+  work = os.path.join(tmp, run_id, "A1MoveGround", "0")
+  shutil.copytree(os.path.join(root, run), work)
   return work
+
+
+def copy_jax_run(tmp):
+  """A copy of the committed JAX run JAX_RUN under tmp/JAX_RUN_ID."""
+  return copy_run(tmp, JAX_RUN, JAX_RUN_ID)
 
 
 def jax_log(work):
@@ -3621,6 +3651,585 @@ def phase_hierarchical(card, dev):
                      act_err=act_err, metrics=metrics, seconds=dt)
 
 
+DEPLOY_RUN = "runs/thin_goal_10M/A1MoveGround/0"
+DEPLOY_ID = "thin_goal_10M"
+DEPLOY_SECONDS = 2.0   # phase 36's policy seconds at 25 Hz
+DEPLOY_MIN_TICKS = 25  # half of its 50 ticks: the loop keeps its pace
+# the deploy policy's actions on the card against the CPU's plain path on
+# the same observations: the gate of phase 1's pi_v card/CPU probe (the
+# layer kernel's 3xTF32 products and the card's float32 convolutions
+# against the CPU's float32, ~1e-6 on a mean of O(1))
+DEPLOY_ACT_TOL = 1e-4
+RANK_ENVS = NUM_ENVS // 2   # phase 37: two gloo ranks sharing the card
+# their initial observations against one rank's: the same draws and the
+# same per-env arithmetic; 1e-4 allows the card's batched products to
+# round differently at 512 and 1024 envs on depths of up to 10 m
+RANK_OBS_TOL = 1e-4
+# phase 37's episode cap: from staggered episode counters, envs reach it
+# at different steps and in unequal numbers on each rank (`gated_epoch`)
+RANK_MAX_EP = 8
+# the ranks against one rank, |a - b| <= tol (1 + |b|): the log-probs
+# (the action draws) of every step and
+# RANK_GATED_FIELDS over the first RANK_GATED_STEPS steps.  The ranks'
+# normalizer merges its moments in float64 where one rank sums them in
+# float32 (~1e-7 relative), which moves the normalized observations, the
+# actions and the physics a little (on the card, 2 x 512 against 1024:
+# ~6e-7 on these fields); tests/test_torch_parallel.py holds 4 steps on
+# the CPU at 1e-4.  The rewards and the proprio observations are printed,
+# not gated: a contact that flips on a 6e-7 change of the action moves a
+# reward by ~2e-3 at the first step, and the normalizer's 1 / (std +
+# 1e-4) turns the rounding of a mean into ~1e-3 on a term that is the
+# same in every env
+RANK_TRAJ_TOL = 1e-4
+RANK_GATED_STEPS = 2
+# the first step's normalizer, merged over the ranks, against one rank's
+# on the same initial observations: float64 moments against float32 sums
+# over 1024 rows, which carry up to ~log2(1024) 2^-24 ~ 6e-7 of rounding
+# (on the card, 2 x 512 against 1024: 2.9e-7)
+RANK_NORM_TOL = 1e-5
+RANK_GATED_FIELDS = ("acts", "means", "stds", "values", "log_probs",
+                     "image_obs_mean")
+
+
+def percentiles(xs):
+  import numpy as np
+  a = np.asarray(xs) * 1e3
+  return dict(median_ms=float(np.median(a)), p99_ms=float(np.percentile(
+      a, 99)), max_ms=float(a.max()), n=int(a.size))
+
+
+def layer_kernel_ms(x, w, n=25, warm=3):
+  """Milliseconds per launch of the layer's forward kernel alone at x's
+  shape: `attention._launch` checks and allocates once, and its launch
+  runs the kernel warm + n times back to back, the last n between CUDA
+  events (at B = 1 the wrapper's checks take longer than the kernel, so
+  `time_ms` of the call times the host).  The launch count is left as it
+  was."""
+  import torch
+  from vision4leg_torch.ops import attention as att
+  fn = att.build_library().transformer_layer_launch
+  out = {}
+
+  def launch(*a):
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(warm):
+      fn(*a, stream)
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    s.record()
+    errs = [fn(*a, stream) for _ in range(n)]
+    e.record()
+    e.synchronize()
+    out["ms"] = s.elapsed_time(e) / n
+    return max(errs, key=abs)
+
+  before = att.fused_transformer_layer.launches
+  att._launch(x, w, launch=launch)
+  att.fused_transformer_layer.launches = before
+  return out["ms"]
+
+
+def phase_deploy(card, dev):
+  """The deploy stack on the card (vision4leg_torch/hardware/
+  execute_locotransformer.py --fake-robot) over a policy the JAX package
+  trained (DEPLOY_RUN, read without JAX): stand, warmup, DEPLOY_SECONDS
+  of policy at 25 Hz, sit, on the loopback robot; the counts set to 0
+  just before and read just after (the layer kernel at (1, 17) twice a
+  tick, nothing else); every recorded observation's action on the card
+  against the CPU's plain path within DEPLOY_ACT_TOL; row 2 at (1, 17)
+  and (3, 17) by `check_layer_case` on those observations' tokens and
+  on three seeded observations' (samples that differ everywhere), and
+  timed at (1, 17) against its plain version and the library layer (and
+  the kernel alone, `layer_kernel_ms`); the tick's and the forward's
+  latency."""
+  import numpy as np
+  import torch
+  from vision4leg_torch.hardware import execute_locotransformer as deploy
+  from vision4leg_torch.hardware.export import load_actor_critic
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.utils.args import get_params
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as tmp:
+    work = copy_run(tmp, DEPLOY_RUN, DEPLOY_ID)
+    argv = ["--config", os.path.join(work, "params.json"), "--log_dir", tmp,
+            "--id", DEPLOY_ID, "--seed", "0", "--fake-robot", "--seconds",
+            str(DEPLOY_SECONDS), "--device", str(dev)]
+    t = time.perf_counter()
+    ex = deploy.build_executor(deploy.parse_args(argv))
+    build_s = time.perf_counter() - t
+    forward, ticks, record = [], [], []
+    fn, step = ex.policy.policy_fn, ex.control_step
+
+    def timed_policy(obs):
+      t0 = time.perf_counter()
+      act = fn(obs)
+      forward.append(time.perf_counter() - t0)
+      record.append((obs, act))
+      return act
+
+    def timed_step():
+      t0 = time.perf_counter()
+      out = step()
+      ticks.append(time.perf_counter() - t0)
+      return out
+
+    ex.policy.policy_fn, ex.control_step = timed_policy, timed_step
+    zero_counts()
+    t = time.perf_counter()
+    ex.execute(DEPLOY_SECONDS)
+    run_s = time.perf_counter() - t
+    counts = read_counts()
+    params = get_params(os.path.join(work, "params.json"))
+    cpu = load_actor_critic(params, work, "best", "cpu")
+    card_net = load_actor_critic(params, work, "best", dev)
+  n_layers = len(cpu.pf_layers)
+  want = {"physics_window": 0, "transformer_layer": n_layers * len(record),
+          "transformer_layer_bwd": 0}
+  log(f"[deploy] execute_locotransformer --fake-robot on {card}: built in "
+      f"{build_s:.2f}s, ran {run_s:.2f}s (stand 2 s, warmup 20 ticks, "
+      f"{DEPLOY_SECONDS} s of policy, sit 2 s): {len(record)} policy "
+      f"ticks; launches {counts}, expected {want}")
+  if counts != want or len(record) < DEPLOY_MIN_TICKS:
+    raise AssertionError(f"[deploy] launches {counts} != {want} or only "
+                         f"{len(record)} ticks")
+  obs = np.stack([o for o, _ in record])
+  acts = np.stack([a for _, a in record])
+  with torch.no_grad():
+    ref = cpu.pi(torch.from_numpy(obs), fused=False)[0].numpy()
+  act_err = float(np.abs(acts - ref).max())
+  log(f"[deploy] card actions vs the CPU plain path on the {len(obs)} "
+      f"recorded observations: max abs err {act_err:.3e} (gate "
+      f"{DEPLOY_ACT_TOL:g}); actions in [{acts.min():.3f}, "
+      f"{acts.max():.3f}]")
+  if not (np.isfinite(acts).all() and act_err < DEPLOY_ACT_TOL):
+    raise AssertionError(f"[deploy] card/CPU action mismatch {act_err}")
+  gen = torch.Generator(device=dev).manual_seed(36)
+  err, b_err = 0.0, 0.0
+  # the recorded ticks differ only through the last-action history (the
+  # loopback robot stands still and its camera sees a constant depth), so
+  # the partial tiles are held on seeded observations as well, whose
+  # samples differ everywhere: a kernel that mixes up a tile's samples
+  # fails there
+  seeded = np.random.default_rng(36).normal(
+      0.0, 1.0, (3, obs.shape[1])).astype(np.float32)
+  with torch.no_grad():
+    w0 = att.LayerWeights(*[t.detach() for t in
+                            att.weights_from_layer(card_net.pf_layers[0])])
+    w1 = att.LayerWeights(*[t.detach() for t in
+                            att.weights_from_layer(card_net.pf_layers[1])])
+    cases = []
+    for what, o in (("deploy", obs[:3]), ("seeded", seeded)):
+      tokens = card_net._tokens(torch.from_numpy(o).to(dev))
+      cases += [(f"{what} tokens->pf_layers.0", tokens, w0),
+                (f"{what} layer-1 out->pf_layers.1",
+                 att.layer_math(tokens, w0), w1)]
+    tokens = cases[0][1]
+  x = cases[2][1]
+  spread = float((x[1:] - x[:1]).abs().amax(dim=(1, 2)).min())
+  log(f"[deploy] the seeded samples' tokens part from the first by at "
+      f"least {spread:.3e} (max abs over a sample)")
+  if not spread > 0.1:
+    raise AssertionError(f"[deploy] the seeded samples are too alike "
+                         f"({spread})")
+  for B in (1, 3):
+    for name, x, w in cases:
+      e, b = check_layer_case(name, x[:B].contiguous(), w, gen)
+      err, b_err = max(err, e), max(b_err, b)
+  timed = time_layer_shape(tokens[:1].contiguous(), w0, library_layer(w0),
+                           gen, card)
+  timed["kernel_alone_ms"] = layer_kernel_ms(tokens[:1].contiguous(), w0)
+  log(f"[deploy] the forward kernel alone at (1, 17) on {card}: "
+      f"{timed['kernel_alone_ms']:.4f} ms a launch (25 back to back; the "
+      f"wrapper's call {timed['ms']:.4f} ms)")
+  set_counts({k: 0 for k in counts})
+  lat = dict(tick=percentiles(ticks), forward=percentiles(forward))
+  log(f"[deploy] latency on {card}: tick (observe, wrapper, forward, "
+      f"command) median {lat['tick']['median_ms']:.3f} ms, p99 "
+      f"{lat['tick']['p99_ms']:.3f} ms; forward (obs to the card, pi with "
+      f"the fused layer, mean back) median "
+      f"{lat['forward']['median_ms']:.3f} ms, p99 "
+      f"{lat['forward']['p99_ms']:.3f} ms over {len(forward)} ticks")
+  return counts, dict(ticks=len(record), action_max_abs_err=act_err,
+                      layer_max_abs_err=err, layer_bwd_max_abs_err=b_err,
+                      latency=lat, layer_1x17=timed, run_s=run_s)
+
+
+def rank_update_check(net, obs, params, mesh=None, seed=0):
+  """Four PPO minibatches (fused layer on) from `net`'s state on obs (4,
+  B, D), this rank's B of the global batch (world x B) under a sharded
+  `mesh`: actions drawn from the policy, behaviour log-probs moved off
+  it, seeded rewards, every draw the global draw's rows for the rank, as
+  `fused_update_check` draws them; returns the updated state_dict."""
+  import copy
+  import dataclasses
+
+  import torch
+  from vision4leg_torch.algo.on_policy_base import normal_log_prob
+  from vision4leg_torch.algo.ppo import PPOLearner
+  from vision4leg_torch.collector.rollout import Transition
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.parallel.mesh import ONE
+  mesh = ONE if mesh is None else mesh
+  T, B = obs.shape[:2]
+  world, rank = mesh.world, mesh.rank
+  dev = obs.device
+  cfg = dataclasses.replace(common.ppo_config(params), batch_size=B * world,
+                            epoch_frames=T * B * world, opt_epochs=1,
+                            shuffle=False)
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  cols = slice(rank * B, (rank + 1) * B)
+  rnd = lambda *s: torch.randn(T, B * world, *s, generator=gen,
+                               device=dev)[:, cols]
+  with torch.no_grad():
+    (mean, std, _), value = net.pi_v(obs.reshape(T * B, -1), fused=True)
+  split = lambda x: x.reshape(T, B, -1)
+  mean, std, value = split(mean), split(std), split(value)
+  acts = mean + std * rnd(mean.shape[-1])
+  logp = normal_log_prob(mean, std, acts) + 0.3 * (2 * torch.rand(
+      T, B * world, 1, generator=gen, device=dev)[:, cols] - 1)
+  no = torch.zeros(T, B, 1, dtype=torch.bool, device=dev)
+  traj = Transition(obs=obs, acts=acts, log_probs=logp, values=value,
+                    rewards=0.1 * rnd(1), terminals=no, time_limits=no,
+                    means=mean, stds=std)
+  m = copy.deepcopy(net).train()
+  learner = PPOLearner(cfg, lambda mm, x: mm.pi(x, fused=True),
+                       lambda mm, x: mm.v(x, fused=True), m, mesh)
+  learner.update_per_epoch(learner.init_state(m), traj,
+                           torch.zeros(B, device=dev),
+                           perms=[list(range(T))])
+  return {k: v.detach().cpu() for k, v in m.state_dict().items()}
+
+
+def thin_goal_agent(dev, num_envs, mesh=None, logger=None, save_dir=None):
+  """A PPOAgent of thin-goal from the starter's pieces at num_envs envs,
+  fused layer on in collection and update, seed 0; under `mesh` its
+  rank's share."""
+  from vision4leg_torch.algo.agent import PPOAgent
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter import ppo_locotransformer as starter
+  env, meta, params = build_env(CONFIG, dev)
+  agent = PPOAgent(
+      env=env, ac_module=starter.build_module(env, params),
+      cfg=common.ppo_config(params, num_epochs=1), num_envs=num_envs,
+      seed=0, logger=logger, save_dir=save_dir, eval_interval=1,
+      num_eval_envs=common.num_eval_envs(params),
+      obs_norm=meta["obs_norm"], env_time_limit=meta["horizon"],
+      reward_scale=meta["reward_scale"], fused_attention=True,
+      fused_update=True, mesh=mesh, device=dev)
+  return agent, params
+
+
+TRAJ_FIELDS = ("acts", "log_probs", "values", "rewards", "means", "stds",
+               "terminals", "time_limits")
+
+
+def gated_epoch(agent):
+  """One train_epoch with episodes capped at RANK_MAX_EP, from episode
+  counters staggered over the global env index (env i of E at
+  floor(RANK_MAX_EP frac(4 (i / E)^2)); a rank sets its rows), so that
+  at each step envs of every rank reach the cap, in unequal numbers on
+  each: the epoch's partial resets cut the global reset draw at uneven,
+  nonzero offsets.
+  Returns (metrics, the trajectory's digest on the host: its fields, the
+  proprio observations, each image's mean, for each step the raw
+  observations of the envs its partial reset made (`reset_from`'s, in
+  env order), and the normalizer (mean, var, count) that the rollout's
+  first step makes (merged over the ranks); the steps at which some env
+  of the agent reached the cap, each of which bootstraps its value with
+  one more `v`)."""
+  import torch
+  from vision4leg_torch.data import normalizer as norm
+  cs, env = agent.collector_state, agent.env
+  E, p = agent.num_envs, env.cfg.proprio_dim
+  i = torch.arange(E, device=cs.ep_steps.device)[agent.mesh.env_slice(E)]
+  ep = (RANK_MAX_EP * (4 * (i.double() / E) ** 2).frac()).floor().to(
+      torch.int32)
+  agent.collector_state = cs.replace(ep_steps=ep)
+  kept, made, rollout, reset_from = {}, [], agent.rollout, env.reset_from
+  merged, update = [], norm.update
+
+  def keep(*a):
+    kept["out"] = out = rollout(*a)
+    return out
+
+  def record(n, draws):
+    out = reset_from(n, draws)
+    made.append(out[1].cpu())
+    return out
+
+  def record_update(*a):
+    merged.append(update(*a))
+    return merged[-1]
+
+  agent.rollout, env.reset_from, norm.update = keep, record, record_update
+  try:
+    metrics = agent.train_epoch(RANK_MAX_EP)
+  finally:
+    agent.rollout, env.reset_from, norm.update = rollout, reset_from, update
+  traj = kept["out"][1]
+  digest = {k: getattr(traj, k).cpu() for k in TRAJ_FIELDS}
+  digest["proprio_obs"] = traj.obs[..., :p].cpu()
+  digest["image_obs_mean"] = traj.obs[..., p:].double().mean(-1).cpu()
+  capped, ep, reset_obs = 0, ep.cpu(), []
+  for t in range(traj.terminals.shape[0]):
+    ep = ep + 1
+    capped += bool((ep >= RANK_MAX_EP).any())
+    ends = digest["terminals"][t, :, 0]
+    # reset_from runs at a step where some env of this agent ended
+    reset_obs.append(made.pop(0) if bool(ends.any())
+                     else torch.zeros(0, traj.obs.shape[-1]))
+    ep = torch.where(ends, 0, ep)
+  digest["reset_obs"] = reset_obs
+  digest["normalizer1"] = [x.cpu() for x in (merged[0].mean, merged[0].var,
+                                             merged[0].count)]
+  return metrics, digest, capped
+
+
+def epoch_on_rank(mesh, save_dir):
+  """A rank of phase 37's 2 x RANK_ENVS run on the shared card: one
+  thin-goal `gated_epoch` with the counts at 0 just before and read just
+  after, then `rank_update_check` on its share of the initial
+  observations."""
+  import torch
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  pk.build_library()
+  att.build_library()
+  agent, params = thin_goal_agent(mesh.device, NUM_ENVS, mesh,
+                                  save_dir=save_dir)
+  cs = agent.collector_state
+  obs0 = first_obs(agent)
+  init = {k: v.clone() for k, v in agent.module.state_dict().items()}
+  zero_counts()
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  metrics, traj, capped = gated_epoch(agent)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t
+  counts = read_counts()
+  after = {k: v.cpu() for k, v in agent.module.state_dict().items()}
+  agent.module.load_state_dict(init)
+  checked = rank_update_check(agent.module, obs0.expand(4, *obs0.shape),
+                              params, mesh)
+  return dict(counts=counts, seconds=seconds, phases=agent.phase_seconds,
+              metrics={k: float(v) for k, v in metrics.items()},
+              params=after, raw_obs0=cs.raw_obs.cpu(),
+              update_check=checked, traj=traj, capped=capped)
+
+
+def first_obs(agent):
+  """The initial collector's observations under the initial normalizer
+  (the same elementwise map on every rank and on one)."""
+  from vision4leg_torch.data import normalizer as norm
+  cs = agent.collector_state
+  return norm.filt_with_img_tail(cs.normalizer, cs.raw_obs,
+                                 agent.env.cfg.proprio_dim)
+
+
+def max_diff(a, b):
+  return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def phase_ranks(card, dev):
+  """Env-axis data parallelism on the card (parallel/mesh.py): (a) a
+  world-1 NCCL thin-goal epoch against the unranked agent's from the
+  same seed, bit for bit (cuDNN held deterministic for both); (b) two
+  gloo ranks sharing the card at 2 x RANK_ENVS envs (`epoch_on_rank`,
+  started before (a), which runs while they reach the card, so that
+  their epochs share the card with it too), held against the unranked
+  agent by `check_ranks_against_one`.  Every epoch is a `gated_epoch`
+  (partial resets at unequal counts a rank)."""
+  import torch
+  from vision4leg_torch.algo.agent import _flatten
+  from vision4leg_torch.parallel import mesh as mesh_lib
+  det = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+      # the two ranks start (~15 s to reach the card) while (a) runs
+      t = time.perf_counter()
+      pending = mesh_lib.start_ranks(epoch_on_rank, 2, (tmp,),
+                                     backend="gloo", device=str(dev),
+                                     timeout_s=400)
+      mesh = mesh_lib.init_rank(0, 1, mesh_lib.free_port(), "nccl", dev)
+      try:
+        ranked, params = thin_goal_agent(dev, NUM_ENVS, mesh, save_dir=tmp)
+        zero_counts()
+        t1 = time.perf_counter()
+        gated_epoch(ranked)
+        torch.cuda.synchronize()
+        world1_s = time.perf_counter() - t1
+        world1_counts = read_counts()
+        ranked.save_checkpoint(0)
+      finally:
+        mesh_lib.shutdown()
+      plain, _ = thin_goal_agent(dev, NUM_ENVS, save_dir=tmp)
+      init = {k: v.clone() for k, v in plain.module.state_dict().items()}
+      obs0 = first_obs(plain)
+      raw0 = plain.collector_state.raw_obs.cpu()
+      _, plain_traj, _ = gated_epoch(plain)
+      torch.cuda.synchronize()
+      a = {f"module.{k}": v for k, v in ranked.module.state_dict().items()}
+      a.update(_flatten(ranked.collector_state, "cs", {}))
+      b = {f"module.{k}": v for k, v in plain.module.state_dict().items()}
+      b.update(_flatten(plain.collector_state, "cs", {}))
+      differ = [k for k in a if not torch.equal(a[k], b[k])]
+      log(f"[ranks] world-1 NCCL thin-goal epoch at {NUM_ENVS} envs on "
+          f"{card}: {world1_s:.2f}s, launches {world1_counts}; against the "
+          f"unranked agent's epoch: {len(a) - len(differ)} of {len(a)} "
+          f"tensors (parameters, collector) the same bits"
+          + (f"; differing {differ[:6]} by up to "
+             f"{max_diff({k: a[k] for k in differ}, b):.3e}"
+             if differ else ""))
+      if differ:
+        raise AssertionError(f"[ranks] the world-1 NCCL epoch parts from "
+                             f"the unranked one: {differ[:6]}")
+      plain_after = {k: v.cpu() for k, v in plain.module.state_dict().items()}
+      del ranked, a, b
+      torch.cuda.empty_cache()
+      ranks = mesh_lib.join_ranks(pending)
+      ranks_s = time.perf_counter() - t
+    plain.module.load_state_dict(init)
+    single = rank_update_check(plain.module, obs0.expand(4, *obs0.shape),
+                               params)
+  finally:
+    torch.backends.cudnn.deterministic = det
+  checked = check_ranks_against_one(ranks, plain, raw0, single,
+                                    plain_after, plain_traj, "gloo", card)
+  log(f"[ranks] the ranks started and joined in {ranks_s:.2f}s")
+  by_path = {"world-1 NCCL thin-goal epoch": world1_counts}
+  by_path.update({f"2-rank gloo thin-goal epoch, rank {r}": o["counts"]
+                  for r, o in enumerate(ranks)})
+  return by_path, dict(world1_epoch_s=world1_s, ranks_wall_s=ranks_s,
+                       **checked)
+
+
+def check_ranks_against_one(ranks, plain, raw0, single, plain_after,
+                            plain_traj, backend, card):
+  """`epoch_on_rank`'s results of W ranks against one unranked agent at
+  NUM_ENVS envs (`plain`, after its `gated_epoch`; `raw0` its initial
+  observations, `plain_traj` its trajectory's digest, `single` its
+  `rank_update_check`): each rank's launches exact, the ranks' initial
+  observations the unranked ones within RANK_OBS_TOL; their trajectory
+  (concatenated over the env axis in rank order) the unranked one's:
+  terminals and time limits the same, partial resets made, the raw
+  observations of the envs each reset made within RANK_OBS_TOL (the
+  reset draws' offsets), the first step's merged normalizer within
+  RANK_NORM_TOL (its count exact), the log-probs (the action draws) and RANK_GATED_FIELDS of the
+  first RANK_GATED_STEPS steps (the forward on the merged normalizer; the
+  camera's step draws) within RANK_TRAJ_TOL; their parameters the same
+  bits, their four fused minibatches within FUSED_UPDATE_BAND of the
+  unranked ones; the other fields, the later steps and the whole epoch's
+  parameter difference printed, not gated.  Returns the numbers."""
+  import torch
+  from vision4leg_torch.algo.on_policy_base import minibatches
+  W = len(ranks)
+  rows, n_batches = minibatches(plain.cfg, plain.horizon, NUM_ENVS)
+  n_mb = plain.cfg.opt_epochs * n_batches
+  # pi_v (4 layers) a step, v (2) at the end and at every step at which
+  # some env of the rank reached the episode cap; 4 a minibatch
+  want = [{"physics_window": plain.horizon,
+           "transformer_layer": (4 * plain.horizon + 2 + 2 * r["capped"]
+                                 + 4 * n_mb),
+           "transformer_layer_bwd": 4 * n_mb} for r in ranks]
+  r0 = ranks[0]
+  # the draws, the first normalizer and the first steps are gated; later
+  # steps are printed: the trajectories part by float32 rounding that the
+  # contacts and the normalizer's 1 / std amplify (on the card at 2 x 512
+  # envs ~1e-3 at the first step, ~1 by the fifth)
+  apart = ("reset_obs", "normalizer1")
+  traj = {k: torch.cat([r["traj"][k] for r in ranks], dim=1)
+          for k in plain_traj if k not in apart}
+  flags_same = all(torch.equal(traj[k], plain_traj[k])
+                   for k in ("terminals", "time_limits"))
+  rel_err = lambda a, b: ((a.double() - b.double()).abs()
+                          / (1 + b.double().abs()))
+  rel = {k: rel_err(traj[k], v).flatten(1).amax(dim=1)
+         for k, v in plain_traj.items()
+         if k not in apart and v.is_floating_point()}
+  early = {k: float(v[:RANK_GATED_STEPS].max()) for k, v in rel.items()}
+  gated = max(early[k] for k in RANK_GATED_FIELDS)
+  (m, v, c), (pm, pv, pc) = r0["traj"]["normalizer1"], \
+      plain_traj["normalizer1"]
+  nrm_err = float(max(rel_err(m, pm).max(), rel_err(v, pv).max()))
+  nrm_same_count = bool(torch.equal(c, pc)) and all(
+      torch.equal(r["traj"]["normalizer1"][2], c) for r in ranks)
+  by_step = [max(float(v[t]) for v in rel.values())
+             for t in range(plain.horizon)]
+  logp_err = float(rel["log_probs"].max())
+  resets = plain_traj["terminals"][..., 0].sum(dim=1)
+  per_rank = torch.stack([r["traj"]["terminals"][..., 0].sum(dim=1)
+                          for r in ranks])
+  reset_err = 0.0
+  if flags_same:
+    reset_err = max(float((torch.cat([r["traj"]["reset_obs"][t]
+                                      for r in ranks])
+                           - plain_traj["reset_obs"][t]).abs().max())
+                    for t in range(plain.horizon) if resets[t])
+  raw_err = float((torch.cat([r["raw_obs0"] for r in ranks])
+                   - raw0).abs().max())
+  same_params = all(torch.equal(r0["params"][k], r["params"][k])
+                    for r in ranks[1:] for k in r0["params"])
+  check_diff = max_diff(r0["update_check"], single)
+  check_ranks = max(max_diff(r0["update_check"], r["update_check"])
+                    for r in ranks[1:])
+  epoch_diff = max_diff(r0["params"], plain_after)
+  for r, out in enumerate(ranks):
+    log(f"[ranks] {backend} rank {r} of {W} on {card}: "
+        f"{NUM_ENVS // W} envs, epoch {out['seconds']:.2f}s (collection "
+        f"{out['phases']['Explore_Time']:.2f}s, update "
+        f"{out['phases']['Update_Time']:.2f}s), launches {out['counts']}, "
+        f"expected {want[r]}; policy_loss "
+        f"{out['metrics']['Training/policy_loss']:.5f}")
+  log(f"[ranks] {W} x {NUM_ENVS // W} against 1 x {NUM_ENVS}, the "
+      f"{plain.horizon}-step trajectory (episodes capped at {RANK_MAX_EP}): "
+      f"{int(resets.sum())} partial resets, at steps "
+      f"{[int(x) for x in torch.nonzero(resets)[:, 0]]}, a rank's counts "
+      f"{per_rank[:, resets > 0].tolist()}; terminals and time limits the "
+      f"same: {flags_same}; the reset envs' raw observations max abs diff "
+      f"{reset_err:.3e} (gate {RANK_OBS_TOL:g}); |diff| / (1 + |ref|): "
+      f"the first step's normalizer {nrm_err:.3e} (gate {RANK_NORM_TOL:g}; "
+      f"counts the same: {nrm_same_count}), log-probs (the action draws) "
+      f"{logp_err:.3e}, "
+      f"the first {RANK_GATED_STEPS} steps by field "
+      + ", ".join(f"{k} {v:.3e}" for k, v in early.items())
+      + f" (gate {RANK_TRAJ_TOL:g} on {', '.join(RANK_GATED_FIELDS)}); "
+      f"each step's largest (ungated) "
+      + ", ".join(f"{x:.1e}" for x in by_step))
+  log(f"[ranks] {W} x {NUM_ENVS // W} against 1 x {NUM_ENVS}: initial "
+      f"observations max abs diff {raw_err:.3e}; ranks' parameters the "
+      f"same bits: {same_params}; four fused minibatches from one state "
+      f"{check_diff:.3e} (band {FUSED_UPDATE_BAND:g}; the other ranks "
+      f"against rank 0 {check_ranks:.3e}); the whole epoch's parameters "
+      f"{epoch_diff:.3e} (ungated: 48 minibatches on trajectories that "
+      f"part by the merged normalizer's float32 rounding)")
+  if [out["counts"] for out in ranks] != want:
+    raise AssertionError(f"[ranks] per-rank launches "
+                         f"{[o['counts'] for o in ranks]} != {want}")
+  traj_ok = (flags_same and int(resets.sum()) > 0
+             and reset_err <= RANK_OBS_TOL and logp_err <= RANK_TRAJ_TOL
+             and gated <= RANK_TRAJ_TOL and nrm_err <= RANK_NORM_TOL
+             and nrm_same_count)
+  if not (raw_err <= RANK_OBS_TOL and same_params and check_ranks == 0.0
+          and check_diff <= FUSED_UPDATE_BAND and traj_ok):
+    raise AssertionError(f"[ranks] {W} ranks part from 1: initial obs "
+                         f"{raw_err}, same params {same_params}, update "
+                         f"{check_diff} (ranks {check_ranks}), terminals "
+                         f"the same {flags_same}, partial resets "
+                         f"{int(resets.sum())} (raw obs {reset_err}), "
+                         f"normalizer {nrm_err} (count {nrm_same_count}), "
+                         f"log-probs {logp_err}, first steps {early}")
+  return dict(rank_epoch_s=[o["seconds"] for o in ranks],
+              rank_update_s=[o["phases"]["Update_Time"] for o in ranks],
+              initial_obs_max_abs_diff=raw_err, update_check_diff=check_diff,
+              first_steps_rel_diff=early, log_prob_rel_diff=logp_err,
+              first_normalizer_rel_diff=nrm_err,
+              reset_obs_max_abs_diff=reset_err,
+              partial_resets=int(resets.sum()), step_rel_diff=by_step,
+              epoch_param_diff=epoch_diff)
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -3988,7 +4597,15 @@ def main() -> int:
   new_paths.update(paths_35)
   torch.cuda.empty_cache()
 
-  # --- 36. results ----------------------------------------------------------
+  # --- 36. the deploy stack on the card: the layer kernel at B = 1 -------
+  deploy_launches, deploy = phase_deploy(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 37. env-axis data parallelism over ranks ---------------------------
+  rank_paths, ranks = phase_ranks(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 38. results ----------------------------------------------------------
   # launches: the sum over the paths that run a kernel, each read just
   # after it was driven with the counts at 0 (by path beside it)
   by_path = {k: {n: v[n] for n in ("physics_window", "physics_window_settle",
@@ -4020,6 +4637,8 @@ def main() -> int:
   by_path.update({k: {n: v[n] for n in ("physics_window", "transformer_layer",
                                         "transformer_layer_bwd")}
                   for k, v in new_paths.items()})
+  by_path["deploy (fake robot, B 1)"] = deploy_launches
+  by_path.update(rank_paths)
   total = lambda name: sum(v.get(name, 0) for v in by_path.values())
   row1_paths = {k: v["physics_window"] for k, v in by_path.items()
                 if "MPC" not in k}
@@ -4031,9 +4650,10 @@ def main() -> int:
                               if name in v}
   minibatch = {k: v["minibatch"] for k, v in paths.items()}
   layer["max_abs_err"] = max(layer["max_abs_err"], jax_run_errs[0],
-                             t33["max_abs_err"])
+                             t33["max_abs_err"], deploy["layer_max_abs_err"])
   layer_bwd["max_abs_err"] = max(layer_bwd["max_abs_err"], jax_run_errs[1],
-                                 t33["bwd_max_abs_err"])
+                                 t33["bwd_max_abs_err"],
+                                 deploy["layer_bwd_max_abs_err"])
   kernels = [dict(
       name="physics_window", route="cuda",
       source="vision4leg_torch/ops/csrc/physics_window.cu",
@@ -4068,11 +4688,13 @@ def main() -> int:
       shapes=f"(B, T, 64), F 256: T 17 at B 1024, 8 (eval), 32 (the "
              f"JAX-trained eval), the update's minibatch {minibatch} and the "
              f"A2C, REINFORCE and V-MPO updates' 1024 (V-MPO's policy on "
-             f"its top half, 512); T "
+             f"its top half, 512), 512 (the 2-rank epoch's ranks) and 1 "
+             f"(deploy, twice a tick); T "
              f"16 (vision-only) at the same; T 33 (the 16-channel "
              f"LocoTransformer, the large instantiation) at B 1024; checked "
-             f"also at B 1000 and 512 (T 17), 512 (T 16), 8 (T 33)",
-      at_33_tokens=t33["shapes"], **layer), dict(
+             f"also at B 1000, 512 and 3 (T 17), 512 (T 16), 8 (T 33)",
+      at_33_tokens=t33["shapes"], deploy_1x17=deploy["layer_1x17"],
+      **layer), dict(
       name="transformer_layer_bwd", route="cuda",
       source="vision4leg_torch/ops/csrc/transformer_layer.cu",
       replaces="vision4leg_tpu/ops/attention.py:149 (_ad_bwd :178)",
@@ -4144,7 +4766,9 @@ def main() -> int:
                     "on_policy_family": on_policy,
                     "ppo_aux": ppo_aux_run,
                     "off_policy": off_policy,
-                    "hierarchical": hier}),
+                    "hierarchical": hier,
+                    "deploy": deploy,
+                    "ranks": ranks}),
         flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ from vision4leg_torch.algo.ppo import PPOConfig
 from vision4leg_torch.envs.env import A1GymEnv
 from vision4leg_torch.envs.get_env import env_config_from_build_params
 from vision4leg_torch.models.actor_critic import LocoTransformerActorCritic
+from vision4leg_torch.parallel.mesh import Mesh
 from vision4leg_torch.starter import common
 from vision4leg_torch.starter.ppo_locotransformer import build_module
 from vision4leg_torch.utils.logger import Logger
@@ -240,15 +241,18 @@ def test_short_horizon_warning(thin_goal, tmp_path):
 
 
 def test_unported_options_raise(thin_goal, tmp_path):
-  """Multi-device data parallelism stays refused; bf16 collection and a
-  separate eval env are ported (tests/test_torch_bf16.py and
-  tests/test_torch_sim2sim.py hold them against JAX)."""
+  """Every option is ported now: a mesh is refused only on another
+  device than the agent's (tests/test_torch_parallel.py holds the sharded
+  epoch); bf16 collection and a separate eval env are ported
+  (tests/test_torch_bf16.py and tests/test_torch_sim2sim.py hold them
+  against JAX)."""
   env, _ = thin_goal
   kw = dict(env=env, cfg=_cfg(), num_envs=NUM_ENVS, seed=0,
             logger=_NullLogger(tmp_path), save_dir=str(tmp_path),
             device="cpu")
-  with pytest.raises(NotImplementedError, match="item 6"):
-    PPOAgent(ac_module=_net(env), mesh=object(), **kw)
+  with pytest.raises(ValueError, match="mesh on cuda"):
+    PPOAgent(ac_module=_net(env), mesh=Mesh(1, 0, torch.device("cuda")),
+             **kw)
   with warnings.catch_warnings():
     warnings.simplefilter("ignore")          # the short-horizon warning
     agent = PPOAgent(ac_module=_net(env), inference_dtype=torch.bfloat16,

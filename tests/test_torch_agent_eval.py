@@ -92,6 +92,13 @@ class ReplayResetEnv(tenv_mod.A1GymEnv):
     states, obs = self.start
     return states, obs
 
+  # the collector resets from draws, which the replay does not take
+  def draw_for_reset(self, n_env, gen):
+    return None
+
+  def reset_from(self, n_env, draws):
+    return self.reset(n_env, None)
+
   def draw_blind_spots(self, n_env, gen):
     # the JAX step splits the state key in 3 and keeps [0]; the capture
     # splits that and draws the blind spots from [1]

@@ -65,7 +65,10 @@ class _TorchStub:
   def __init__(self, obs):
     self.obs = torch.tensor(obs)
 
-  def step_batch(self, states, actions, gen):
+  def draw_for_step(self, n_env, states, gen):
+    return None
+
+  def step_from(self, states, actions, draws):
     return states, self.obs, torch.zeros(E), torch.zeros(E, dtype=bool), {}
 
 

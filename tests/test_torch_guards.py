@@ -16,7 +16,7 @@ import importlib, importlib.util, pkgutil, sys
 class Block:
   def find_spec(self, name, path=None, target=None):
     if name.split(".")[0] in ("jax", "jaxlib", "flax", "vision4leg_tpu",
-                              "msgpack"):
+                              "msgpack", "starter"):
       raise ImportError(f"blocked import of {name}")
     return None
 
@@ -69,7 +69,20 @@ for n in ("vision4leg_torch.algo.agent",
           "vision4leg_torch.data.replay",
           "vision4leg_torch.collector.host",
           "vision4leg_torch.collector.hierarchical",
-          "vision4leg_torch.collector.atari"):
+          "vision4leg_torch.collector.atari",
+          "vision4leg_torch.hardware.sensor_histories",
+          "vision4leg_torch.hardware.state_logger",
+          "vision4leg_torch.hardware.realsense",
+          "vision4leg_torch.hardware.robot_interface",
+          "vision4leg_torch.hardware.policy_wrapper",
+          "vision4leg_torch.hardware.executor",
+          "vision4leg_torch.hardware.export",
+          "vision4leg_torch.hardware.execute_locotransformer",
+          "vision4leg_torch.utils.profiling",
+          "vision4leg_torch.utils.tensorboard_starter",
+          "vision4leg_torch.models.nets",
+          "vision4leg_torch.parallel.mesh",
+          "vision4leg_torch.parallel.dryrun"):
   assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -183,6 +196,11 @@ def test_default_device_entry_points_raise_without_a_card():
   from vision4leg_torch.collector.host import HostOnPolicyCollector
   with pytest.raises(RuntimeError, match="no CUDA device"):
     HostOnPolicyCollector(None, None, None)
+  # the deploy entry point: its policy runs on the card, never quietly on
+  # the CPU
+  from vision4leg_torch.hardware import execute_locotransformer as deploy
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    deploy.main(run + ["--fake-robot", "--seconds", "0"])
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -250,9 +250,17 @@ def test_agent_builds_on_the_mpc_env(tmp_path):
 
 
 def test_agent_refuses_unported_options_on_the_mpc_env(tmp_path):
-  """Multi-device data parallelism stays refused on the MPC env."""
-  with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-    _agent_on_mpc_env(tmp_path, mesh=object())
+  """Every option is ported now: the MPC env takes a mesh
+  (tests/test_torch_parallel.py shards it over two ranks); a mesh on
+  another device than the agent's is refused, and a world of one
+  collects what the unranked agent collects."""
+  from vision4leg_torch.parallel.mesh import Mesh
+  with pytest.raises(ValueError, match="mesh on cuda"):
+    _agent_on_mpc_env(tmp_path, mesh=Mesh(1, 0, torch.device("cuda")))
+  ranked = _agent_on_mpc_env(tmp_path, mesh=Mesh(1, 0, torch.device("cpu")))
+  plain = _agent_on_mpc_env(tmp_path)
+  assert torch.equal(ranked.collector_state.raw_obs,
+                     plain.collector_state.raw_obs)
 
 
 @pytest.mark.parametrize("option", ["inference_dtype", "eval_env",

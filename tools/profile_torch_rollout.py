@@ -9,8 +9,9 @@ Builds the main path as chip_smoke.py does (thin-goal JSON, 1024 envs,
 LocoTransformer at full width, random weights from a seed), runs one
 rollout to warm up, times two more without the profiler, then profiles
 one with torch.profiler.  Spans named here wrap the layers' entry points
-(env.reset, env.step_batch, the physics window's CUDA launch, the camera,
-the policy); the program itself carries no spans.  Prints the card, the
+(the env's reset and step as the collector calls them, `reset_from` and
+`step_from`; the eval's `step_batch`; the physics window's CUDA launch,
+the camera, the policy); the program itself carries no spans.  Prints the card, the
 steady-state env-steps/s, the share of the profiled rollout's wall time
 that kernels ran on the card, each span's host milliseconds and its range
 on the device timeline, and the top CUDA kernels, then one JSON line with
@@ -259,15 +260,15 @@ def main() -> int:
   build = chip_smoke.build_mpc_path if mpc else chip_smoke.build_main_path
   env, meta, net, params = build(dev)
 
-  spans = ("env.reset", "env.step_batch", "physics_window", "camera",
+  spans = ("env.reset_from", "env.step_from", "physics_window", "camera",
            "policy.pi_v")
   if mpc:
     from vision4leg_torch.mpc import convex_mpc
     spans += ("kkt_inverse", "controller_tick")
     convex_mpc.kkt_inverse = span("kkt_inverse", convex_mpc.kkt_inverse)
     env.controller_tick = span("controller_tick", env.controller_tick)
-  env.reset = span("env.reset", env.reset)
-  env.step_batch = span("env.step_batch", env.step_batch)
+  env.reset_from = span("env.reset_from", env.reset_from)
+  env.step_from = span("env.step_from", env.step_from)
   env._render = span("camera", env._render)
   # robot_window keeps its launch count on itself: wrap the launch inside
   pk._launch = span("physics_window", pk._launch)

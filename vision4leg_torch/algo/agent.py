@@ -26,6 +26,7 @@ from vision4leg_torch.algo.on_policy_base import AdamState
 from vision4leg_torch.collector import rollout as rollout_lib
 from vision4leg_torch.data import normalizer as norm
 from vision4leg_torch.envs import wrappers
+from vision4leg_torch.parallel import mesh as mesh_lib
 from vision4leg_torch.utils import flax_msgpack
 
 
@@ -105,11 +106,26 @@ class PPOAgent:
     collector's obs normalizer, the same object; eval_horizon defaults to
     max_episode_frames.  An env config with `curriculum` caps each epoch's
     episodes by the curriculum ramp (`_curriculum_episode_cap`).
+
+    mesh (parallel.mesh.Mesh, on the agent's device) shards the env axis
+    over ranks, one agent per rank, as the JAX agent does over a device
+    mesh (vision4leg_tpu/algo/agent.py:141-145, 236-240): each steps its
+    num_envs / world envs, draws the global draws' rows for them, and
+    all-reduces gradients and batch statistics; parameters stay the same
+    bits on every rank (checked after each epoch).  Every rank evaluates,
+    as the replicated JAX eval does; rank 0 alone logs and writes
+    snapshots, and checkpoints hold the global collector state (gathered
+    from every rank), which a restore re-shards over its own ranks.
     """
-    if mesh is not None:
-      raise NotImplementedError("multi-device data parallelism is ROADMAP "
-                                "queue 1 item 6")
     self.device = resolve_device(device)
+    if mesh is None:
+      mesh = mesh_lib.Mesh(device=self.device)
+    elif (mesh_lib.canonical_device(mesh.device)
+          != mesh_lib.canonical_device(self.device)):
+      raise ValueError(f"PPOAgent: mesh on {mesh.device}, agent on "
+                       f"{self.device}")
+    self.mesh = mesh
+    self.writer = mesh.rank == 0
     for e in (env, eval_env):
       if e is not None and e.device != self.device:
         raise ValueError(f"PPOAgent: env on {e.device}, agent on "
@@ -185,7 +201,8 @@ class PPOAgent:
         return coll.pi(x), coll.v(x)
 
     self.apply_pi = apply_pi
-    self.learner = PPOLearner(cfg, apply_pi, apply_v, self.module)
+    self.learner = PPOLearner(cfg, apply_pi, apply_v, self.module,
+                              self.mesh)
     self.train_state = self.learner.init_state(self.module)
 
     horizon = cfg.epoch_frames // num_envs
@@ -213,10 +230,10 @@ class PPOAgent:
         obs_norm=obs_norm, action_low=env.action_low,
         action_high=env.action_high, env_time_limit=env_time_limit,
         reward_scale=reward_scale, inference_dtype=inference_dtype,
-        weights=(self.module, coll))
+        weights=(self.module, coll), mesh=self.mesh)
     self.collector_state = rollout_lib.init_collector(
         env, num_envs,
-        torch.Generator(device=self.device).manual_seed(s_coll))
+        torch.Generator(device=self.device).manual_seed(s_coll), self.mesh)
     self.eval_horizon = (eval_horizon if eval_horizon is not None
                          else cfg.max_episode_frames)
     self.best_eval = -np.inf
@@ -229,6 +246,8 @@ class PPOAgent:
       torch.cuda.synchronize(self.device)
 
   def _log(self, msg: str):
+    if not self.writer:
+      return
     if self.logger is not None:
       self.logger.log(msg)
     else:
@@ -300,9 +319,11 @@ class PPOAgent:
     cs, traj, last_value = self.rollout(self.collector_state, max_ep)
     self._sync()
     t1 = time.time()
-    metrics = self._epoch_metrics(traj, cs.normalizer)
+    metrics = self.mesh.reduce_metrics(
+        self._epoch_metrics(traj, cs.normalizer))
     ts, up_metrics = self.learner.update_per_epoch(
         self.train_state, traj, last_value, gen=self.update_gen)
+    self.mesh.check_replicated(self.module, "after an epoch ")
     self._sync()
     self.phase_seconds = {"Explore_Time": t1 - t0,
                           "Update_Time": time.time() - t1}
@@ -316,14 +337,25 @@ class PPOAgent:
     collector (normalizer, env states, episode counters), every
     generator's state, epoch, best eval and total frames — a true resume
     point.  Written to `checkpoint_new`, then swapped in by two renames,
-    so a crash at any time leaves a complete checkpoint behind."""
+    so a crash at any time leaves a complete checkpoint behind.  Under a
+    sharded mesh every rank must call it (the collector is gathered); rank
+    0 writes."""
     path = osp.join(osp.abspath(self.save_dir), "checkpoint")
     ts, cs = self.train_state, self.collector_state
+    collector = mesh_lib.gather_collector_state(
+        self.mesh, _flatten(cs, "cs", {}))
+    if self.writer:
+      self._write_checkpoint(path, ts, collector, epoch)
+    # under ranks, the checkpoint is whole once any rank returns
+    self.mesh.all_reduce(torch.zeros(1, device=self.device))
+
+  def _write_checkpoint(self, path, ts, collector, epoch: int):
+    cs = self.collector_state
     opt = lambda s: dict(count=s.count, mu=s.mu, nu=s.nu)
     ckpt = {"module": self.module.state_dict(),
             "pf_opt": opt(ts.pf_opt), "vf_opt": opt(ts.vf_opt),
             "train_epoch": ts.epoch,
-            "collector": _flatten(cs, "cs", {}),
+            "collector": collector,
             "generators": {"collect": cs.gen.get_state(),
                            "update": self.update_gen.get_state(),
                            "eval": self.eval_gen.get_state()},
@@ -402,13 +434,15 @@ class PPOAgent:
     """Restore a full checkpoint if present; returns the next epoch.
     Falls back to a snapshot warm start when no checkpoint exists."""
     path = osp.join(osp.abspath(self.save_dir), "checkpoint")
-    if not osp.exists(path):
+    if not osp.exists(path) and self.writer:
       # a crash between save_checkpoint's two renames leaves the complete
       # checkpoint under _new (or the previous one under _old)
       for alt in (path + "_new", path + "_old"):
         if osp.exists(alt):
           os.rename(alt, path)
           break
+    # under ranks, the others wait for that rename
+    self.mesh.all_reduce(torch.zeros(1, device=self.device))
     if not osp.exists(path):
       return self._warm_start_from_snapshot()
     ckpt = torch.load(path, map_location=self.device, weights_only=True)
@@ -420,7 +454,11 @@ class PPOAgent:
         epoch=ckpt["train_epoch"])
     gens = ckpt["generators"]
     grafted: List[str] = []
-    cs = _unflatten(self.collector_state, ckpt["collector"], "cs", grafted)
+    # the global collector cut to this rank's envs
+    # (vision4leg_tpu/algo/agent.py:509-512)
+    flat = mesh_lib.shard_collector_state(self.mesh, ckpt["collector"],
+                                          self.num_envs)
+    cs = _unflatten(self.collector_state, flat, "cs", grafted)
     if grafted:
       self._log(f"checkpoint predates {len(grafted)} collector field(s); "
                 f"kept their fresh values: {', '.join(grafted)}")
@@ -433,7 +471,10 @@ class PPOAgent:
     return int(ckpt["epoch"]) + 1
 
   def snapshot(self, suffix: str):
-    """Save params + normalizer (rl_algo.py:84-95 naming scheme)."""
+    """Save params + normalizer (rl_algo.py:84-95 naming scheme); under a
+    sharded mesh rank 0 alone."""
+    if not self.writer:
+      return
     torch.save(self.module.state_dict(),
                osp.join(self.save_dir, f"model_pf_{suffix}.pt"))
     nrm = self.collector_state.normalizer
@@ -441,11 +482,19 @@ class PPOAgent:
              mean=nrm.mean.cpu().numpy(), var=nrm.var.cpu().numpy(),
              count=nrm.count.cpu().numpy())
 
+  def _checkpoint_due(self, last_ckpt: float) -> bool:
+    """Whether ckpt_secs have passed since the last checkpoint; under a
+    sharded mesh, on any rank (the ranks must agree: a checkpoint is a
+    collective)."""
+    due = time.time() - last_ckpt >= self.ckpt_secs
+    flag = torch.tensor([float(due)], device=self.device)
+    return bool(self.mesh.all_reduce(flag, mesh_lib.dist.ReduceOp.MAX))
+
   def train(self, resume: bool = False):
     cfg = self.cfg
     start = time.time()
     start_epoch = self.restore_checkpoint() if resume else 0
-    if start_epoch:
+    if start_epoch and self.writer:
       self.logger.log(f"resumed from checkpoint at epoch {start_epoch}")
       # drop stale log.csv rows from the crashed segment past the
       # checkpoint so the resumed run doesn't append duplicate epochs
@@ -458,10 +507,12 @@ class PPOAgent:
       # one device->host transfer for all epoch scalars
       cs = self.collector_state
       keys = list(metrics)
+      finished = self.mesh.all_reduce(torch.stack(
+          [cs.finished_count, cs.finished_returns_sum,
+           cs.finished_len_sum]))
       stacked = torch.stack(
           [metrics[k].reshape(()).float() for k in keys]
-          + [cs.finished_count, cs.finished_returns_sum,
-             cs.finished_len_sum]).cpu().numpy()
+          + list(finished)).cpu().numpy()
       train_time = time.time() - t0
       self.total_frames += cfg.epoch_frames
       infos = dict(zip(keys, map(float, stacked[:-3])))
@@ -490,12 +541,13 @@ class PPOAgent:
         self.snapshot(str(epoch + 1))
         self.save_checkpoint(epoch)
         last_ckpt = time.time()
-      elif time.time() - last_ckpt >= self.ckpt_secs:
+      elif self._checkpoint_due(last_ckpt):
         # wall-clock checkpoint floor: bounds the replay after a kill to
         # ckpt_secs instead of save_interval epochs
         self.save_checkpoint(epoch)
         last_ckpt = time.time()
 
-      self.logger.add_epoch_info(epoch, self.total_frames,
-                                 time.time() - start, infos)
+      if self.writer:
+        self.logger.add_epoch_info(epoch, self.total_frames,
+                                   time.time() - start, infos)
     self.snapshot("finish")

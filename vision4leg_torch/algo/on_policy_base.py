@@ -17,9 +17,11 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from vision4leg_torch.collector.rollout import Transition
+from vision4leg_torch.parallel import mesh as mesh_lib
 from vision4leg_torch.data import gae as gae_lib
 
 
@@ -84,7 +86,8 @@ class MaskedAdam:
   B1, B2 = 0.9, 0.999
 
   def __init__(self, cfg: OnPolicyConfig, module: nn.Module, which: str,
-               base_lr: float):
+               base_lr: float, mesh: mesh_lib.Mesh = mesh_lib.ONE):
+    self.mesh = mesh
     labels = param_labels(module)
     named = [(n, p) for n, p in module.named_parameters()
              if labels[n.split(".")[0]] in (which, "both")]
@@ -109,7 +112,10 @@ class MaskedAdam:
   @torch.no_grad()
   def update(self, grads, state: AdamState) -> AdamState:
     """Apply one step to the parameters in place; `grads` follows
-    `self.params` (None for a parameter the loss does not reach)."""
+    `self.params` (None for a parameter the loss does not reach).  Under a
+    sharded mesh, the gradients are first all-reduced to their mean over
+    the ranks."""
+    grads = self.mesh.mean_grads(grads)
     g = [torch.zeros_like(p) if x is None else x
          for x, p in zip(grads, self.params)]
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
@@ -189,15 +195,21 @@ class OnPolicyLearner:
   apply_pi(module, obs) -> (mean, std, logstd); apply_v(module, obs) ->
   (B, 1).  batch = (obs, acts, advs, est_rets, old_values, old_logp,
   means, stds), all flattened (B, ...).
+
+  mesh (parallel.mesh.Mesh): the trajectory holds this rank's envs of the
+  global one; minibatches are counted on the global env count, gradients
+  all-reduced, and batch statistics and metrics merged over the ranks.
   """
 
   def __init__(self, cfg: OnPolicyConfig, apply_pi: Callable,
-               apply_v: Callable, module: nn.Module):
+               apply_v: Callable, module: nn.Module,
+               mesh: mesh_lib.Mesh = mesh_lib.ONE):
     self.cfg = cfg
     self.apply_pi = apply_pi
     self.apply_v = apply_v
-    self.pf_tx = MaskedAdam(cfg, module, "pf", cfg.plr)
-    self.vf_tx = MaskedAdam(cfg, module, "vf", cfg.vlr)
+    self.mesh = mesh
+    self.pf_tx = MaskedAdam(cfg, module, "pf", cfg.plr, self.mesh)
+    self.vf_tx = MaskedAdam(cfg, module, "vf", cfg.vlr, self.mesh)
 
   def init_state(self, module: nn.Module) -> TrainState:
     return TrainState(params=module, pf_opt=self.pf_tx.init(),
@@ -235,11 +247,13 @@ class OnPolicyLearner:
     T, E = traj.rewards.shape[:2]
     dev = traj.rewards.device
     advs, rets = self.compute_advantages(traj, last_value)
-    rows_per_batch, n_batches = minibatches(cfg, T, E)
+    mesh = self.mesh
+    rows_per_batch, n_batches = minibatches(cfg, T, E * mesh.world)
+    a_mean, a_var = mesh.moments(advs.reshape(-1))
     adv_metrics = {
-        "advs/mean": advs.mean(), "advs/std": advs.std(correction=0),
-        "advs/max": advs.max(), "advs/min": advs.min(),
-    }
+        "advs/mean": a_mean, "advs/std": torch.sqrt(a_var),
+        "advs/max": mesh.all_reduce(advs.max(), dist.ReduceOp.MAX),
+        "advs/min": mesh.all_reduce(advs.min(), dist.ReduceOp.MIN)}
     collected: Dict[str, list] = {}
     for e in range(cfg.opt_epochs):
       if perms is not None:
@@ -261,9 +275,18 @@ class OnPolicyLearner:
         ts, m = self._minibatch_update(ts, batch)
         for k, v in m.items():
           collected.setdefault(k, []).append(v)
-    metrics = {k: torch.stack(v).mean() for k, v in collected.items()}
+    stacked = mesh.reduce_metrics(
+        {k: torch.stack(v) for k, v in collected.items()})
+    metrics = {k: v.mean() for k, v in stacked.items()}
     metrics.update(adv_metrics)
     return ts.replace(epoch=ts.epoch + 1), metrics
+
+  def normalize_advantages(self, advs):
+    """(advs - mean) / (std + 1e-5) over the minibatch, the global one
+    under a sharded mesh (ppo.py:148; the std with Bessel's
+    correction)."""
+    mean, var = self.mesh.moments(advs.reshape(-1), correction=1)
+    return (advs - mean) / (torch.sqrt(var) + 1e-5)
 
 
 _LOG_2PI = math.log(2 * math.pi)

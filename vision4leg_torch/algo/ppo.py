@@ -37,7 +37,7 @@ class PPOLearner(OnPolicyLearner):
     obs, acts, advs, est_rets, old_values, old_logp, _, _ = batch
     module = ts.params
     # per-minibatch advantage normalization (ppo.py:148)
-    advs = (advs - advs.mean()) / (advs.std(correction=1) + 1e-5)
+    advs = self.normalize_advantages(advs)
 
     # --- critic first (ppo.py:152) ---
     values = self.apply_v(module, obs)

@@ -22,6 +22,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from vision4leg_torch.data import normalizer as norm
+from vision4leg_torch.parallel import mesh as mesh_lib
+from vision4leg_torch.parallel.mesh import take_rows
 
 
 class Transition(NamedTuple):
@@ -52,11 +54,14 @@ class CollectorState:
     return dataclasses.replace(self, **kw)
 
 
-def init_collector(env, num_envs: int, gen: torch.Generator
-                   ) -> CollectorState:
+def init_collector(env, num_envs: int, gen: torch.Generator,
+                   mesh: mesh_lib.Mesh = mesh_lib.ONE) -> CollectorState:
   """Reset num_envs envs on the env's device; randomness from `gen` (a
-  generator on that device)."""
-  env_states, raw_obs = env.reset(num_envs, gen)
+  generator on that device).  Under a sharded `mesh`, the rank's part of
+  them: the global reset's draws, its rows kept."""
+  num_envs = mesh.local_envs(num_envs)
+  env_states, raw_obs = env.reset_from(num_envs, mesh.own_rows(
+      lambda n: env.draw_for_reset(n, gen), num_envs))
   dev = raw_obs.device
   zero = torch.zeros((), device=dev)
   return CollectorState(
@@ -74,7 +79,7 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
                     action_low=None, action_high=None,
                     env_time_limit: int = 1000, reward_scale: float = 1.0,
                     act_fn: Callable = None, inference_dtype=None,
-                    weights=None):
+                    weights=None, mesh: mesh_lib.Mesh = mesh_lib.ONE):
   """Build `rollout(cs, max_ep=None) -> (cs, Transition, last_v)`.
 
   apply_pi_v(obs) -> ((mean, std, logstd), value) runs policy and value
@@ -88,7 +93,15 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
   down once per rollout; each observation is cast down, and (mean, std,
   value) come back in float32, so sampling, log-probs and the stored
   behaviour stats stay float32.  The PPO update stays float32.
+  mesh (parallel.mesh.Mesh): `cs` holds this rank's envs; every draw is
+  the global draw's rows for them, the partial resets' too (each rank
+  learns how many envs every rank resets), and the normalizer merges the
+  global batch's statistics.  The env steps and resets from given draws
+  (`step_from`, `reset_from`).
   """
+  if mesh.sharded and act_fn is not None:
+    raise NotImplementedError("act_fn draws its own noise: no sharded "
+                              "rollout takes it")
 
   def normalize(nstate, raw):
     if not obs_norm:
@@ -109,7 +122,7 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
   def step_fn(cs: CollectorState, max_ep: int):
     nstate = cs.normalizer
     if obs_norm:
-      nstate = norm.update(nstate, cs.raw_obs[..., :proprio_dim])
+      nstate = norm.update(nstate, cs.raw_obs[..., :proprio_dim], mesh)
     obs = normalize(nstate, cs.raw_obs)
 
     if act_fn is not None:
@@ -117,7 +130,9 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
       value = apply_v(obs)
     else:
       (mean, std, _), value = apply_pi_v(obs)
-      noise = torch.randn(mean.shape, generator=cs.gen, device=mean.device)
+      noise = mesh.own_rows(lambda n: torch.randn(
+          (n,) + mean.shape[1:], generator=cs.gen, device=mean.device),
+          mean.shape[0])
       act = mean + std * noise
       log_prob = torch.sum(
           -0.5 * noise ** 2 - torch.log(std) - 0.5 * math.log(2 * math.pi),
@@ -125,8 +140,10 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
       env_act = action_low + (torch.tanh(act) + 1.0) * 0.5 * (
           action_high - action_low)
 
-    env_states, next_raw, rew, done, _ = env.step_batch(
-        cs.env_states, env_act, cs.gen)
+    env_states, next_raw, rew, done, _ = env.step_from(
+        cs.env_states, env_act, mesh.own_rows(
+            lambda n: env.draw_for_step(n, cs.env_states, cs.gen),
+            env_act.shape[0]))
     rew = rew * reward_scale
     ep_steps = cs.ep_steps + 1
     tl_done = ep_steps >= env_time_limit
@@ -141,12 +158,19 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
     fin_cnt = cs.finished_count + torch.sum(terminal)
     fin_len = cs.finished_len_sum + torch.sum(ep_steps.float() * terminal)
 
-    if bool(terminal.any()):
-      # reset only the finished envs, then scatter them into the batch
-      idx = torch.nonzero(terminal)[:, 0]
-      reset_states, reset_obs = env.reset(int(idx.numel()), cs.gen)
-      env_states = _scatter(env_states, reset_states, idx)
-      next_raw = next_raw.index_copy(0, idx, reset_obs)
+    # reset only the finished envs (the global reset's rows of this
+    # rank's), then scatter them into the batch
+    counts = [int(c) for c in
+              mesh.all_gather(terminal.sum().reshape(1)).reshape(-1)]
+    mine, total = counts[mesh.rank], sum(counts)
+    if total:
+      draws = take_rows(env.draw_for_reset(total, cs.gen),
+                        sum(counts[:mesh.rank]), mine, total)
+      if mine:
+        idx = torch.nonzero(terminal)[:, 0]
+        reset_states, reset_obs = env.reset_from(mine, draws)
+        env_states = _scatter(env_states, reset_states, idx)
+        next_raw = next_raw.index_copy(0, idx, reset_obs)
     ep_steps = torch.where(terminal, 0, ep_steps).to(torch.int32)
     ep_return = torch.where(terminal, 0.0, ep_return)
 

@@ -255,6 +255,39 @@ def params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
   return sd
 
 
+def nets_params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
+  """state_dict of a models.nets head from the flax head's params pulled
+  to numpy, the head told by the params' layout: Net (`MLPBase_0` at the
+  top), LocoTransformer or Transformer (`LocoTransformerEncoder_0`, its
+  token LayerNorm_0 where token_norm is on, TransformerEncoderLayer_i),
+  NatureFuseNet (`NatureFuseEncoder_0`); the head's Dense_j -> head.layers.j
+  in each."""
+  p = np_params.get("params", np_params)
+  sd: Dict[str, torch.Tensor] = {}
+  if "MLPBase_0" in p:
+    _mlp(sd, "base.layers", p["MLPBase_0"])
+  elif "LocoTransformerEncoder_0" in p:
+    sd.update({f"encoder.{k}": v for k, v in encoder_from_flax(
+        p["LocoTransformerEncoder_0"]).items()})
+    if "LayerNorm_0" in p:
+      sd["token_norm.weight"] = torch.tensor(
+          np.asarray(p["LayerNorm_0"]["scale"]).copy())
+      sd["token_norm.bias"] = torch.tensor(
+          np.asarray(p["LayerNorm_0"]["bias"]).copy())
+    n_layers = sum(1 for k in p if k.startswith("TransformerEncoderLayer_"))
+    for li in range(n_layers):
+      _attention_layer(sd, f"layers.{li}", p[f"TransformerEncoderLayer_{li}"])
+  elif "NatureFuseEncoder_0" in p:
+    enc = p["NatureFuseEncoder_0"]
+    _nature_from_flax(sd, "encoder.nature", enc["NatureEncoder_0"])
+    _dense(sd, "encoder.projection.dense", enc["RLProjection_0"]["Dense_0"])
+    _mlp(sd, "encoder.state_mlp.layers", enc["MLPBase_0"])
+  else:
+    raise ValueError(f"flax nets head: unknown layout {sorted(p)}")
+  _mlp(sd, "head.layers", p)
+  return sd
+
+
 def off_policy_params_from_flax(np_params: Mapping) -> Dict[str, torch.Tensor]:
   """state_dict of a models.off_policy_nets module (TanhGaussianPolicy,
   DetTanhPolicy, QNet, DiscreteQNet, BootstrappedQNet) from the flax

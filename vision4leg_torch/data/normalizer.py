@@ -8,6 +8,8 @@ import dataclasses
 
 import torch
 
+from vision4leg_torch.parallel import mesh as mesh_lib
+
 
 @dataclasses.dataclass
 class NormalizerState:
@@ -22,14 +24,18 @@ def init_normalizer(dim: int, device="cpu") -> NormalizerState:
                          count=torch.tensor(1e-4, device=device))
 
 
-def update(state: NormalizerState, batch) -> NormalizerState:
-  """Merge the statistics of a (B, D) batch (base_wrapper.py:44-61)."""
-  b_mean = torch.mean(batch, dim=0)
-  # a zero-size head (vision-only envs) has nothing to merge but the
-  # count; torch.var warns on it
-  b_var = (torch.var(batch, dim=0, unbiased=False) if batch.shape[-1]
-           else b_mean)
-  b_count = batch.shape[0]
+def update(state: NormalizerState, batch,
+           mesh: mesh_lib.Mesh = mesh_lib.ONE) -> NormalizerState:
+  """Merge the statistics of a (B, D) batch (base_wrapper.py:44-61).
+  Under a sharded `mesh` the batch is this rank's rows of the global one,
+  whose statistics are merged (`Mesh.moments`)."""
+  b_count = batch.shape[0] * mesh.world
+  if batch.shape[-1]:
+    b_mean, b_var = mesh.moments(batch)
+  else:
+    # a zero-size head (vision-only envs) has nothing to merge but the
+    # count; torch.var warns on it
+    b_mean = b_var = torch.mean(batch, dim=0)
   delta = b_mean - state.mean
   tot = state.count + b_count
   new_mean = state.mean + delta * b_count / tot

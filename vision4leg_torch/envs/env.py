@@ -392,10 +392,19 @@ class A1GymEnv:
   def reset(self, n_env: int, gen: torch.Generator
             ) -> Tuple[EnvState, torch.Tensor]:
     """A batch of n_env fresh envs and their observations (E, obs_dim)."""
+    return self.reset_from(n_env, self.draw_for_reset(n_env, gen))
+
+  def draw_for_reset(self, n_env: int, gen: torch.Generator):
+    """Every draw of a reset of n_env envs, in the order `reset` takes
+    them: a tree of tensors whose leading axis is the env's."""
+    return self.draw_reset(n_env, gen), self.draw_frame_delays(n_env, gen)
+
+  def reset_from(self, n_env: int, all_draws
+                 ) -> Tuple[EnvState, torch.Tensor]:
+    """The reset of n_env envs from their `draw_for_reset`."""
     cfg = self.cfg
-    draws = self.draw_reset(n_env, gen)
-    frame_idx, interp_delay = self._frame_idx(
-        n_env, self.draw_frame_delays(n_env, gen))
+    draws, frame_draws = all_draws
+    frame_idx, interp_delay = self._frame_idx(n_env, frame_draws)
     template = self.settled_template()
     E = n_env
     pos_xy = self._init_pos[:2] + draws.init_jitter
@@ -617,9 +626,17 @@ class A1GymEnv:
     over all envs on flat ground, else the per-env engine), sensors,
     task, camera.  Returns (states, obs (E, D), reward (E,), done (E,)
     bool, info)."""
+    return self.step_from(states, actions,
+                          self.draw_for_step(actions.shape[0], states, gen))
+
+  def draw_for_step(self, n_env: int, states: EnvState, gen: torch.Generator
+                 ) -> StepDraws:
+    """Every draw of a step of n_env envs (leading axis the env's)."""
+    return self.draw_step(n_env, states.terrain.boxes.shape[1], gen)
+
+  def step_from(self, states: EnvState, actions, draws: StepDraws):
+    """`step_batch` with its draws given."""
     cfg = self.cfg
-    draws = self.draw_step(actions.shape[0], states.terrain.boxes.shape[1],
-                           gen)
     states, act12 = self._step_pre(states, actions, draws)
     if not self.kernel_capable:
       rs, pen = self._engine_window(states, act12)

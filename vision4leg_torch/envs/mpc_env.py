@@ -36,7 +36,7 @@ through the per-env engine with every box, as the JAX reset does.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -172,9 +172,15 @@ class A1MPCGymEnv(A1GymEnv):
   def reset(self, n_env: int, gen: torch.Generator
             ) -> Tuple[MpcEnvState, torch.Tensor]:
     """A batch of n_env fresh envs and their observations (E, obs_dim)."""
+    return self.reset_from(n_env, self.draw_for_reset(n_env, gen))
+
+  def draw_for_reset(self, n_env: int, gen: torch.Generator) -> MpcResetDraws:
+    return self.draw_reset(n_env, gen)
+
+  def reset_from(self, n_env: int, draws: MpcResetDraws
+                 ) -> Tuple[MpcEnvState, torch.Tensor]:
     cfg = self.cfg
     E = n_env
-    draws = self.draw_reset(n_env, gen)
     pos = torch.cat([self._init_pos[:2] + draws.init_jitter,
                      self._init_pos[2].expand(E, 1)], dim=-1)
     dyn = a1.default_dynamics(self.model, (E,))
@@ -288,6 +294,17 @@ class A1MPCGymEnv(A1GymEnv):
     flat ground, the per-env engine on a heightfield); then task, done,
     the NaN kill-switch, the camera and the observation.  Returns
     (states, obs (E, D), reward (E,), done (E,) bool, info)."""
+    return self.step_from(states, actions,
+                          self.draw_for_step(actions.shape[0], states, gen))
+
+  def draw_for_step(self, n_env: int, states: MpcEnvState,
+                 gen: torch.Generator) -> Optional[BlindSpots]:
+    """A step's one draw: the camera's blind spots (None without it)."""
+    return self.draw_blind_spots(n_env, gen) if self.cfg.get_image else None
+
+  def step_from(self, states: MpcEnvState, actions,
+                blind: Optional[BlindSpots]):
+    """`step_batch` with its draw given."""
     cfg = self.cfg
     E = actions.shape[0]
     acts, lin, ang = self._commands(actions)
@@ -324,7 +341,7 @@ class A1MPCGymEnv(A1GymEnv):
                             step_counter=states.step_counter + 1)
     if cfg.get_image:
       capture = (states.step_counter % cfg.get_image_interval) == 0
-      depth = self._render(states, self.draw_blind_spots(E, gen))
+      depth = self._render(states, blind)
       frames = torch.cat([depth[:, None], states.frames[:, :-1]], dim=1)
       states = states.replace(frames=select(capture, frames, states.frames))
     # the same kill-switch for the observation

@@ -129,18 +129,32 @@ class TrajectoryGeneratorWrapper:
     return self.env.obs_dim + getattr(self.tg, "extra_obs_dim", 0)
 
   def reset(self, n_env: int, gen: torch.Generator):
+    return self.reset_from(n_env, self.draw_for_reset(n_env, gen))
+
+  def draw_for_reset(self, n_env: int, gen: torch.Generator):
+    return self.env.draw_for_reset(n_env, gen)
+
+  def reset_from(self, n_env: int, draws):
     tg_state = self.tg.reset(n_env, self.env.device)
-    env_states, obs = self.env.reset(n_env, gen)
+    env_states, obs = self.env.reset_from(n_env, draws)
     return (TGEnvState(env=env_states, tg=tg_state),
             self.tg.get_observation(tg_state, obs))
 
   def step_batch(self, states: TGEnvState, actions, gen: torch.Generator):
+    return self.step_from(states, actions,
+                          self.draw_for_step(actions.shape[0], states, gen))
+
+  def draw_for_step(self, n_env: int, states: TGEnvState,
+                    gen: torch.Generator):
+    return self.env.draw_for_step(n_env, states.env, gen)
+
+  def step_from(self, states: TGEnvState, actions, draws):
     cfg = self.env.cfg
     time_since_reset = (states.env.step_counter.float() * cfg.time_step_s
                         * cfg.num_action_repeat)
     tg_state, motor = self.tg.get_action(states.tg, time_since_reset,
                                          actions)
-    env_states, obs, rew, done, info = self.env.step_batch(states.env, motor,
-                                                           gen)
+    env_states, obs, rew, done, info = self.env.step_from(states.env, motor,
+                                                         draws)
     return (TGEnvState(env=env_states, tg=tg_state),
             self.tg.get_observation(tg_state, obs), rew, done, info)

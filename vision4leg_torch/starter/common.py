@@ -14,6 +14,7 @@ import torch
 from vision4leg_torch.algo.agent import PPOAgent
 from vision4leg_torch.algo.ppo import PPOConfig
 from vision4leg_torch.envs.get_env import get_env
+from vision4leg_torch.parallel import mesh as mesh_lib
 from vision4leg_torch.utils.args import get_args, get_params
 from vision4leg_torch.utils.logger import Logger
 
@@ -99,6 +100,21 @@ def eval_env_of(params: dict, eval_params_transform, device=None):
   return eval_env, eval_meta["horizon"]
 
 
+def choose_world(num_envs: int, log=print) -> int:
+  """The ranks a run starts: one per visible card when there are several
+  and num_envs divides among them, else one (logged), as the JAX starter
+  shards its env axis over every local device (starter/common.py:95-108);
+  V4L_MESH=0 opts out."""
+  n = torch.cuda.device_count()
+  if n <= 1 or os.environ.get("V4L_MESH", "1") == "0":
+    return 1
+  if num_envs % n:
+    log(f"V4L_MESH skipped: num_envs={num_envs} not divisible by {n} "
+        f"devices")
+    return 1
+  return n
+
+
 def run_experiment(build_module, eval_params_transform=None):
   """build_module(env, params) -> uninitialized torch actor-critic.
 
@@ -107,18 +123,34 @@ def run_experiment(build_module, eval_params_transform=None):
   params["env"] (sim-to-sim transfer, reference
   ppo_nature_cnn_sim2sim.py:43-60), with the training env's obs
   normalizer, as in the reference.  V4L_BF16_COLLECT=1 runs the
-  collection forward in bfloat16 (the PPO update stays float32)."""
+  collection forward in bfloat16 (the PPO update stays float32).  On a
+  host with several cards the run starts one rank per card (NCCL) and
+  shards the envs over them (`choose_world`); both callables are then
+  pickled by their import path.  Returns the agent (None under ranks)."""
   args = get_args()
-  params = get_params(args.config)
-  if torch.cuda.device_count() > 1 and os.environ.get("V4L_MESH",
-                                                      "1") != "0":
-    raise NotImplementedError(
-        "more than one card: multi-device data parallelism is ROADMAP "
-        "queue 1 item 6; set V4L_MESH=0 (or CUDA_VISIBLE_DEVICES) to "
-        "train on one card")
+  num_envs = args.num_envs or max(args.vec_env_nums, 1)
+  world = choose_world(num_envs)
+  if world == 1:
+    return train_run(None, args, build_module, eval_params_transform)
+  print(f"env axis sharded over {world} ranks, one a card (NCCL); at "
+        f"1024 envs the ranks train no faster than one card (the update's "
+        f"minibatches do not shrink with ranks: PERF.md section 7); "
+        f"V4L_MESH=0 keeps one card", flush=True)
+  mesh_lib.run_ranks(train_run, world, (args, build_module,
+                                        eval_params_transform),
+                     backend="nccl", timeout_s=None)
+  return None
 
-  env, meta = get_env(params["env_name"], params["env"])
-  eval_env, eval_horizon = eval_env_of(params, eval_params_transform)
+
+def train_run(mesh, args, build_module, eval_params_transform=None):
+  """One training run of the parsed starter `args` on this process's card
+  (`mesh`'s under ranks: rank 0 logs and writes the run's files).
+  Returns the agent, or None on a rank."""
+  params = get_params(args.config)
+  device = None if mesh is None else mesh.device
+  env, meta = get_env(params["env_name"], params["env"], device=device)
+  eval_env, eval_horizon = eval_env_of(params, eval_params_transform,
+                                       device)
   num_envs = args.num_envs or max(args.vec_env_nums, 1)
 
   random.seed(args.seed)
@@ -126,21 +158,30 @@ def run_experiment(build_module, eval_params_transform=None):
 
   experiment_name = (osp.split(osp.splitext(args.config)[0])[-1]
                      if args.id is None else args.id)
-  # --resume wins over --overwrite: never delete the checkpoint to resume
-  logger = Logger(experiment_name, params["env_name"], args.seed, params,
-                  args.log_dir, args.overwrite and not args.resume)
+  work_dir = osp.join(args.log_dir, experiment_name, params["env_name"],
+                      str(args.seed))
+  logger = None
+  if mesh is None or mesh.rank == 0:
+    # --resume wins over --overwrite: never delete the checkpoint to resume
+    logger = Logger(experiment_name, params["env_name"], args.seed, params,
+                    args.log_dir, args.overwrite and not args.resume)
+    work_dir = logger.work_dir
+    if mesh is not None:
+      logger.log(f"env axis sharded over {mesh.world} ranks "
+                 f"({num_envs // mesh.world} envs each, {mesh.backend})")
 
   inference_dtype = None
   if _flag("V4L_BF16_COLLECT"):
     inference_dtype = torch.bfloat16
-    logger.log("bfloat16 collection forward enabled (V4L_BF16_COLLECT)")
+    if logger is not None:
+      logger.log("bfloat16 collection forward enabled (V4L_BF16_COLLECT)")
 
   gs = params["general_setting"]
   agent = PPOAgent(
       env=env, ac_module=build_module(env, params),
       cfg=ppo_config(params, args.num_epochs), num_envs=num_envs,
       seed=args.seed, logger=logger,
-      save_dir=osp.join(logger.work_dir, "model"),
+      save_dir=osp.join(work_dir, "model"),
       eval_interval=gs.get("eval_interval", 10),
       save_interval=gs.get("save_interval", 100),
       num_eval_envs=num_eval_envs(params),
@@ -149,6 +190,11 @@ def run_experiment(build_module, eval_params_transform=None):
       reward_scale=meta["reward_scale"],
       inference_dtype=inference_dtype,
       eval_env=eval_env, eval_horizon=eval_horizon,
+      mesh=mesh, device=device,
   )
   agent.train(resume=args.resume)
-  return agent
+  if mesh is None:
+    return agent
+  if logger is not None and logger.tf_writer is not None:
+    logger.tf_writer.close()      # the rank's process exits next
+  return None
