@@ -294,7 +294,17 @@ Phases, each printed with the seconds since start:
      minibatches from one state within FUSED_UPDATE_BAND of the unranked
      ones (phase 11's protocol), the later steps and the whole epoch's
      difference printed;
- 38. one JSON line with every kernel's numbers (launches summed over the
+ 38. the long training path as a user starts it (`phase_long_run`):
+     the LocoTransformer starter's `run_experiment` with the CLI of a
+     long run, --config config/rl/moving/frame_extract4_random_delay/
+     thin-goal.json --num_envs 1024 --num_epochs 10 (V4L_FUSED_ATTN=1,
+     V4L_FUSED_UPDATE=1: the fused layer in collection, update and eval),
+     the config's eval every 10 epochs (8 envs x 999 steps at epoch 9);
+     launches set to 0 just before and held to the path's exact counts;
+     log.csv with epochs 0-9 once each, the JAX log's columns first,
+     every entry finite, 0 non-finite observations and rewards, an
+     Eval_Rewards_Average at epoch 9; model_pf_best written;
+ 39. one JSON line with every kernel's numbers (launches summed over the
      paths, with each path's count and the shapes run), then the last
      line {"ok": true, "device": {...}}.
 
@@ -311,7 +321,8 @@ its viewer 2 episodes; the env viewer 64 steps at one env; the on-policy
 family, PPO-aux and the hierarchical collector one epoch each, the
 off-policy learners 16 pretrain steps and one epoch of 16 steps each; the
 float64 card-vs-CPU updates the first 64 envs of 4 steps (PPO-aux: 2);
-the deploy run 2 s of policy; the ranks one epoch.
+the deploy run 2 s of policy; the ranks one epoch; the long run's
+starter 10 of its 611 epochs (tools/long_train.py runs them all).
 Widths are the configs' own.
 
 Float32 matmuls and convolutions run with TF32 off (both flags set
@@ -734,7 +745,9 @@ def check_layer_case(name, x, w, gen):
       f"{b_err:.3e}; end to end vs autograd of layer_math (x and 16 "
       f"weights): max abs err {g_err:.3e}, largest plain float32 "
       f"spread {spread:.3e}, elements within twice the spread only "
-      f"{excused or 0}, failed {sum(r['failed'] for r in rep.values())}"
+      f"{excused or 0}, decided by the kernel's ReLU mask "
+      f"{sum(r['mask_excused'] for r in rep.values())}, failed "
+      f"{sum(r['failed'] for r in rep.values())}"
       f"; ReLU mask flips kernel vs plain forward "
       f"{int(flips.sum())} at plain pre-activations "
       f"{[f'{v:.2e}' for v in h_pre[flips].tolist()]}")
@@ -4230,6 +4243,122 @@ def check_ranks_against_one(ranks, plain, raw0, single, plain_after,
               epoch_param_diff=epoch_diff)
 
 
+LONG_CONFIG = "config/rl/moving/frame_extract4_random_delay/thin-goal.json"
+LONG_EPOCHS = 10
+
+
+def phase_long_run(card, dev):
+  """The LocoTransformer starter's `run_experiment`, as a long run starts
+  it, for LONG_EPOCHS epochs of LONG_CONFIG at NUM_ENVS envs with the
+  fused layer everywhere (its log in a temporary directory, its epoch
+  table in a file there); the launch counts set to 0 just before and
+  held to the path's: per epoch the window 16 and the layer 4 x 16 + 2
+  + 4 x 48, its backward 4 x 48 (no episode reaches the cap of 999 in
+  160 steps: no other bootstrap); the eval at epoch 9 the window and 2
+  layers a step.  Checks log.csv and the best snapshot.  Returns the
+  launches and the phase's numbers."""
+  import contextlib
+  import csv
+
+  import torch
+  from vision4leg_torch.algo.on_policy_base import minibatches
+  from vision4leg_torch.ops import attention as att
+  from vision4leg_torch.ops import physics_kernel as pk
+  from vision4leg_torch.starter import common
+  from vision4leg_torch.starter import ppo_locotransformer as starter
+  from vision4leg_torch.utils.logger import PPO_COLUMNS
+  with open(LONG_CONFIG) as f:
+    params = json.load(f)
+  cfg = common.ppo_config(params)
+  horizon = cfg.epoch_frames // NUM_ENVS
+  eval_every = params["general_setting"]["eval_interval"]
+  evals = LONG_EPOCHS // eval_every
+  eval_steps = cfg.max_episode_frames
+  _, n_batches = minibatches(cfg, horizon, NUM_ENVS)
+  n_mb = cfg.opt_epochs * n_batches
+  want = {"physics_window": LONG_EPOCHS * horizon + evals * eval_steps,
+          "transformer_layer": LONG_EPOCHS * (4 * horizon + 2 + 4 * n_mb)
+          + evals * 2 * eval_steps,
+          "transformer_layer_bwd": LONG_EPOCHS * 4 * n_mb}
+  flags = {"V4L_FUSED_ATTN": "1", "V4L_FUSED_UPDATE": "1", "V4L_MESH": "0"}
+  saved_env = {k: os.environ.get(k) for k in flags}
+  saved_argv = sys.argv
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_long_") as tmp:
+    os.environ.update(flags)
+    sys.argv = ["ppo_locotransformer", "--config", LONG_CONFIG, "--seed",
+                "0", "--num_envs", str(NUM_ENVS), "--num_epochs",
+                str(LONG_EPOCHS), "--log_dir", tmp, "--id", "long"]
+    table = os.path.join(tmp, "epochs.txt")
+    try:
+      pk.robot_window.launches = 0
+      att.fused_transformer_layer.launches = 0
+      att.fused_transformer_layer_bwd.launches = 0
+      t = time.perf_counter()
+      with open(table, "w") as out, contextlib.redirect_stdout(out):
+        agent = common.run_experiment(starter.build_module)
+      torch.cuda.synchronize()
+      dt = time.perf_counter() - t
+      if agent.logger.tf_writer is not None:
+        agent.logger.tf_writer.close()    # before its directory goes
+    finally:
+      sys.argv = saved_argv
+      for k, v in saved_env.items():
+        if v is None:
+          os.environ.pop(k, None)
+        else:
+          os.environ[k] = v
+    launches = {"physics_window": pk.robot_window.launches,
+                "transformer_layer": att.fused_transformer_layer.launches,
+                "transformer_layer_bwd":
+                    att.fused_transformer_layer_bwd.launches}
+    log(f"[long run] the starter's run_experiment, {LONG_EPOCHS} epochs of "
+        f"{LONG_CONFIG} at {NUM_ENVS} envs, fused layer everywhere, an "
+        f"eval of {eval_steps} steps x {common.num_eval_envs(params)} at "
+        f"epoch {eval_every - 1}, on {card}: {dt:.2f}s; launches "
+        f"{launches}, expected {want}")
+    if launches != want:
+      raise AssertionError(f"[long run] launch counts {launches} != {want}")
+    work = os.path.join(tmp, "long", params["env_name"], "0")
+    with open(os.path.join(work, "log.csv"), newline="") as f:
+      reader = csv.DictReader(f)
+      rows = list(reader)
+      header = reader.fieldnames
+    if list(header[:len(PPO_COLUMNS)]) != list(PPO_COLUMNS):
+      raise AssertionError(f"[long run] log.csv header {header}")
+    epochs = [int(float(r["EPOCH"])) for r in rows]
+    if epochs != list(range(LONG_EPOCHS)):
+      raise AssertionError(f"[long run] log.csv epochs {epochs}")
+    for r in rows:
+      vals = {k: float(v) for k, v in r.items() if v not in ("", None)}
+      bad = [k for k, v in vals.items() if not math.isfinite(v)]
+      if (bad or vals["diagnostics/nonfinite_obs"]
+          or vals["diagnostics/nonfinite_reward"]):
+        raise AssertionError(f"[long run] epoch {r['EPOCH']}: non-finite "
+                             f"{bad} or counts")
+    last = {k: float(v) for k, v in rows[-1].items() if v not in ("", None)}
+    if "Eval_Rewards_Average" not in last:
+      raise AssertionError("[long run] no eval at the last epoch")
+    best = os.path.join(work, "model", "model_pf_best.pt")
+    if not os.path.exists(best):
+      raise AssertionError("[long run] model_pf_best.pt not written")
+    train_s = sorted(float(r["Train___Time"]) for r in rows)
+    numbers = dict(
+        seconds=dt, epochs=LONG_EPOCHS,
+        train_s_median=train_s[len(train_s) // 2], train_s_max=train_s[-1],
+        eval_s=last["Eval____Time"],
+        eval_return=last["Eval_Rewards_Average"],
+        cuda_max_memory_gib=last.get("diagnostics/cuda_max_memory_gib",
+                                     math.nan))
+    log(f"[long run] log.csv: epochs 0-{LONG_EPOCHS - 1} once each, the JAX "
+        f"log's columns first, entries finite; epoch (collection + update) "
+        f"median {numbers['train_s_median']:.3f}s, max "
+        f"{numbers['train_s_max']:.3f}s; eval {numbers['eval_s']:.2f}s, "
+        f"return {numbers['eval_return']:.3f}; peak memory "
+        f"{numbers['cuda_max_memory_gib']:.3f} GiB; model_pf_best.pt "
+        f"written")
+  return launches, numbers
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -4605,7 +4734,11 @@ def main() -> int:
   rank_paths, ranks = phase_ranks(card, dev)
   torch.cuda.empty_cache()
 
-  # --- 38. results ----------------------------------------------------------
+  # --- 38. the long training path, as a user starts it -------------------
+  long_launches, long_run = phase_long_run(card, dev)
+  torch.cuda.empty_cache()
+
+  # --- 39. results ----------------------------------------------------------
   # launches: the sum over the paths that run a kernel, each read just
   # after it was driven with the counts at 0 (by path beside it)
   by_path = {k: {n: v[n] for n in ("physics_window", "physics_window_settle",
@@ -4639,6 +4772,7 @@ def main() -> int:
                   for k, v in new_paths.items()})
   by_path["deploy (fake robot, B 1)"] = deploy_launches
   by_path.update(rank_paths)
+  by_path[f"MMDR moving starter, {LONG_EPOCHS} epochs"] = long_launches
   total = lambda name: sum(v.get(name, 0) for v in by_path.values())
   row1_paths = {k: v["physics_window"] for k, v in by_path.items()
                 if "MPC" not in k}
@@ -4768,7 +4902,8 @@ def main() -> int:
                     "off_policy": off_policy,
                     "hierarchical": hier,
                     "deploy": deploy,
-                    "ranks": ranks}),
+                    "ranks": ranks,
+                    "long_run": long_run}),
         flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

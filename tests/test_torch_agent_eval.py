@@ -109,12 +109,45 @@ class ReplayResetEnv(tenv_mod.A1GymEnv):
                                torch.tensor(np.stack([o[1] for o in out])))
 
 
+class NanAfterDoneTiltEnv(TiltEnv):
+  """TiltEnv whose reward turns NaN where an env already past the fall
+  threshold is stepped on after its first step: the diverged physics of
+  a fallen robot stepped on after its done, made certain."""
+
+  def step(self, state, action):
+    out = super().step(state, action)
+    _, x, y, _ = state.robot.phys.quat
+    fallen = (state.step_counter >= 1) & (1 - 2 * (x * x + y * y) < 0.6)
+    return (out[0], out[1], jnp.where(fallen, jnp.nan, out[2])) + out[3:]
+
+
+class NanAfterDoneReplayEnv(ReplayResetEnv):
+  """The torch side of NanAfterDoneTiltEnv."""
+
+  def step_from(self, states, actions, draws):
+    out = super().step_from(states, actions, draws)
+    q = states.robot.phys.quat
+    fallen = (states.step_counter >= 1) & (
+        1 - 2 * (q[:, 1] ** 2 + q[:, 2] ** 2) < 0.6)
+    return (out[0], out[1], torch.where(fallen, torch.nan, out[2])) \
+        + tuple(out[3:])
+
+
 @pytest.fixture(scope="module")
 def evals(tmp_path_factory):
+  return _evals(tmp_path_factory, TiltEnv, ReplayResetEnv)
+
+
+@pytest.fixture(scope="module")
+def nan_evals(tmp_path_factory):
+  return _evals(tmp_path_factory, NanAfterDoneTiltEnv, NanAfterDoneReplayEnv)
+
+
+def _evals(tmp_path_factory, jax_env_cls, torch_env_cls):
   with open(CONFIG) as f:
     params = json.load(f)
   jenv, _ = jax_get_env(params["env_name"], params["env"])
-  tilt_env = TiltEnv(jenv.cfg)
+  tilt_env = jax_env_cls(jenv.cfg)
   tilt_env._template = jenv.settled_template()
   flax_net = FlaxAC(**WIDTHS)
   with warnings.catch_warnings():
@@ -137,7 +170,7 @@ def evals(tmp_path_factory):
   ks = jax.random.split(k_ev, E)
   jstart, jobs = jax.jit(jax.vmap(tilt_env.reset))(ks)
   tenv, _ = torch_get_env(params["env_name"], params["env"], device="cpu")
-  renv = ReplayResetEnv(tenv.cfg, device="cpu")
+  renv = torch_env_cls(tenv.cfg, device="cpu")
   renv.start = (_env_state(jax.tree.map(np.asarray, jstart)),
                 torch.tensor(np.asarray(jobs)))
   with warnings.catch_warnings():
@@ -171,3 +204,17 @@ def test_eval_done_masking_matches_jax(evals):
   np.testing.assert_array_equal(tsteps, jsteps)
   # the rolled env is done after its first step, the other runs on
   np.testing.assert_array_equal(tsteps, np.where(flags, 1.0, HORIZON))
+
+
+def test_eval_masks_the_rewards_after_the_done(evals, nan_evals):
+  """Where the rolled env's rewards turn NaN after its done, the JAX
+  agent's eval multiplies them by 0 and its return is NaN; the port's
+  leaves them out: its returns are those of the JAX eval without the
+  NaN, at the tolerance above."""
+  (jret, _), _, flags = evals
+  (jret_nan, _), (tret_nan, tsteps_nan), flags_nan = nan_evals
+  assert flags_nan.tolist() == flags.tolist()
+  assert np.isnan(jret_nan[flags]).all()
+  assert np.isfinite(jret_nan[~flags]).all()
+  np.testing.assert_allclose(tret_nan, jret, atol=2e-3)
+  np.testing.assert_array_equal(tsteps_nan, np.where(flags, 1.0, HORIZON))

@@ -67,6 +67,20 @@ def _unflatten(template, flat: Dict[str, torch.Tensor], prefix: str,
   return template
 
 
+def capped_episodes(steps_in, terminals, max_ep: int) -> torch.Tensor:
+  """(T,) the episodes of a rollout that ended at the episode cap at each
+  step, the collector's time-limit truncation (`ep_steps >= max_ep`; a
+  fall on that very step counts too): each env's step count is replayed
+  from `steps_in` (E,) through `terminals` (T, E)."""
+  steps = steps_in.clone()
+  capped = []
+  for term in terminals:
+    steps = steps + 1
+    capped.append(torch.sum(term & (steps >= max_ep)))
+    steps = torch.where(term, 0, steps)
+  return torch.stack(capped).float()
+
+
 def _seeds(seed: int, n: int):
   """n independent seeds derived from one."""
   return [int(s) for s in
@@ -260,9 +274,13 @@ class PPOAgent:
     eval env over eval_horizon steps; returns (returns, steps) per env.
     The observations are normalized by the training collector's
     normalizer and the actions mapped into the training env's bounds, as
-    the JAX agent does.  Steps go through env.step_batch, which the JAX
-    package declares semantically identical to its vmapped per-env step
-    (envs/env.py:585-593); the port has no per-env step."""
+    the JAX agent does.  An env's rewards after its done are left out by
+    selection, where the JAX agent multiplies them by 0: its return of an
+    env whose physics diverges after the done (a fallen robot stepped on)
+    is NaN, the port's the return up to the done.  Steps go through
+    env.step_batch, which the JAX package declares semantically identical
+    to its vmapped per-env step (envs/env.py:585-593); the port has no
+    per-env step."""
     env = self.eval_env
     low, high = self.env.action_low, self.env.action_high
     nrm = self.collector_state.normalizer
@@ -276,7 +294,9 @@ class PPOAgent:
       env_act = low + (torch.tanh(mean) + 1.0) * 0.5 * (high - low)
       states, raw, rew, done, _ = env.step_batch(states, env_act,
                                                  self.eval_gen)
-      ret = ret + rew * (1.0 - done_seen)
+      # selected, not multiplied: an env stepped on after its done can
+      # diverge to NaN, and 0 * NaN would end its return as NaN
+      ret = ret + torch.where(done_seen > 0, 0.0, rew)
       steps = steps + (1.0 - done_seen)
       done_seen = torch.maximum(done_seen, done.float())
     return ret, steps
@@ -316,11 +336,15 @@ class PPOAgent:
     max_episode_frames) and update on it; returns the metrics (tensors)
     and records the seconds of each phase in `phase_seconds`."""
     t0 = time.time()
+    steps_in = self.collector_state.ep_steps
     cs, traj, last_value = self.rollout(self.collector_state, max_ep)
     self._sync()
     t1 = time.time()
-    metrics = self.mesh.reduce_metrics(
-        self._epoch_metrics(traj, cs.normalizer))
+    epoch_metrics = self._epoch_metrics(traj, cs.normalizer)
+    epoch_metrics["diagnostics/capped_episodes"] = capped_episodes(
+        steps_in, traj.terminals[..., 0],
+        self.cfg.max_episode_frames if max_ep is None else max_ep).sum()
+    metrics = self.mesh.reduce_metrics(epoch_metrics)
     ts, up_metrics = self.learner.update_per_epoch(
         self.train_state, traj, last_value, gen=self.update_gen)
     self.mesh.check_replicated(self.module, "after an epoch ")
@@ -490,8 +514,15 @@ class PPOAgent:
     flag = torch.tensor([float(due)], device=self.device)
     return bool(self.mesh.all_reduce(flag, mesh_lib.dist.ReduceOp.MAX))
 
-  def train(self, resume: bool = False):
+  def train(self, resume: bool = False, stop_epoch: Optional[int] = None):
+    """Train epochs up to cfg.num_epochs, from the checkpoint's next epoch
+    with `resume`.  stop_epoch ends this call before that epoch, on a full
+    checkpoint, so that a run is trained in segments joined by `resume`:
+    the learning-rate schedule keeps spanning cfg.num_epochs (a shorter
+    num_epochs would decay it to 0 at the segment's end)."""
     cfg = self.cfg
+    end = cfg.num_epochs if stop_epoch is None else min(stop_epoch,
+                                                         cfg.num_epochs)
     start = time.time()
     start_epoch = self.restore_checkpoint() if resume else 0
     if start_epoch and self.writer:
@@ -501,7 +532,7 @@ class PPOAgent:
       if hasattr(self.logger, "truncate_epochs_from"):
         self.logger.truncate_epochs_from(start_epoch)
     last_ckpt = time.time()
-    for epoch in range(start_epoch, cfg.num_epochs):
+    for epoch in range(start_epoch, end):
       t0 = time.time()
       metrics = self.train_epoch(self._curriculum_episode_cap())
       # one device->host transfer for all epoch scalars
@@ -541,13 +572,19 @@ class PPOAgent:
         self.snapshot(str(epoch + 1))
         self.save_checkpoint(epoch)
         last_ckpt = time.time()
-      elif self._checkpoint_due(last_ckpt):
-        # wall-clock checkpoint floor: bounds the replay after a kill to
-        # ckpt_secs instead of save_interval epochs
+      elif epoch + 1 == end < cfg.num_epochs or self._checkpoint_due(
+          last_ckpt):
+        # a segment's end, or the wall-clock checkpoint floor: bounds the
+        # replay after a kill to ckpt_secs instead of save_interval epochs
         self.save_checkpoint(epoch)
         last_ckpt = time.time()
 
+      if self.device.type == "cuda":
+        # the process's peak so far, this epoch's eval included
+        infos["diagnostics/cuda_max_memory_gib"] = (
+            torch.cuda.max_memory_allocated(self.device) / 2 ** 30)
       if self.writer:
         self.logger.add_epoch_info(epoch, self.total_frames,
                                    time.time() - start, infos)
-    self.snapshot("finish")
+    if end == cfg.num_epochs:
+      self.snapshot("finish")

@@ -103,10 +103,11 @@ def _normalize(z, eps: float = 1e-6):
   return (z - mu) * rstd, rstd[..., 0]
 
 
-def layer_forward_saved(x, w: LayerWeights):
+def layer_forward_saved(x, w: LayerWeights, relu_mask=None):
   """The plain version of the layer's forward with its residuals: (out,
   Residuals) for x (B, T, D), the math of the JAX package's
-  `_layer_math`."""
+  `_layer_math`.  relu_mask (B, T, F) bool, where given, replaces the
+  FFN's ReLU by that fixed mask (`compare_grads_with_plain`)."""
   B, T, D = x.shape
   flat = x.reshape(B * T, D)
   q = (flat @ w.wq + w.bq).reshape(B, T, D)
@@ -118,7 +119,9 @@ def layer_forward_saved(x, w: LayerWeights):
   out = (ctx.reshape(B * T, D) @ w.wo + w.bo).reshape(B, T, D)
   xhat1, rstd1 = _normalize(x + out)
   y = xhat1 * w.ln1_scale + w.ln1_bias
-  h = torch.relu(y.reshape(B * T, D) @ w.w1 + w.b1)
+  pre = y.reshape(B * T, D) @ w.w1 + w.b1
+  h = (torch.relu(pre) if relu_mask is None
+       else pre * relu_mask.reshape(pre.shape).to(pre.dtype))
   f = (h @ w.w2 + w.b2).reshape(B, T, D)
   xhat2, rstd2 = _normalize(y + f)
   return xhat2 * w.ln2_scale + w.ln2_bias, Residuals(
@@ -126,10 +129,10 @@ def layer_forward_saved(x, w: LayerWeights):
       h=h.reshape(B, T, -1), p=attn, rstd1=rstd1, rstd2=rstd2)
 
 
-def layer_math(x, w: LayerWeights):
+def layer_math(x, w: LayerWeights, relu_mask=None):
   """The plain version: (B, T, D) -> (B, T, D), the math of the JAX
-  package's `_layer_math`."""
-  return layer_forward_saved(x, w)[0]
+  package's `_layer_math` (relu_mask: `layer_forward_saved`)."""
+  return layer_forward_saved(x, w, relu_mask)[0]
 
 
 def _ln_backward(d, xhat, rstd, scale):
@@ -479,7 +482,15 @@ def _grads(fn, x, w, g):
   return torch.autograd.grad(out, inputs, g)
 
 
-def compare_grads_with_plain(x, w: LayerWeights, g, run=None):
+def ffn_preactivation(x, w: LayerWeights):
+  """The FFN's pre-activations y W1 + b1 (B, T, F) of the plain layer."""
+  with torch.no_grad():
+    y = layer_forward_saved(x, w)[1].y
+    return y @ w.w1 + w.b1
+
+
+def compare_grads_with_plain(x, w: LayerWeights, g, run=None, saved=None,
+                             relu=None):
   """Hold the gradients (dx, *dw) of sum(run(x, w) * g) (default run:
   `fused_transformer_layer_ad`) against autograd of `layer_math`.
 
@@ -499,29 +510,76 @@ def compare_grads_with_plain(x, w: LayerWeights, g, run=None):
   which moves that sample's gradients, and every weight gradient, by
   O(0.1-1).  The nudged copies of the plain layer flip such kinks too.
   An element that passes only by the second term is counted as excused.
-  Returns (ok, report).
+
+  A kink the nudged copies missed is decided by the ReLU mask of `run`'s
+  own forward (`saved(x, w)`'s residual h > 0; default
+  `fused_layer_forward_saved`, the kernel's): where it differs from the
+  float64 plain mask only at pre-activations within float32's reach of
+  zero (twice the largest distance of the plain float32 pre-activations,
+  on the inputs and the nudged copies, from the float64 ones), the plain
+  gradient is recomputed under that mask, and an element that fails the
+  rule above passes (`mask_excused`) if that recomputation moved its
+  float64 reference and it meets the same rule against the masked
+  references.  Every other element is held as before; a flip beyond the
+  reach excuses nothing.  Returns (ok, report); `relu`, a dict where
+  given, receives the flips, those within reach, the reach and the flips'
+  float64 pre-activations.
   """
   run = fused_transformer_layer_ad if run is None else run
+  saved = fused_layer_forward_saved if saved is None else saved
   got = _grads(run, x, w, g)
-  p32 = _grads(layer_math, x, w, g)
   d = lambda t: t.double()
-  p64 = _grads(layer_math, d(x), LayerWeights(*map(d, w)), d(g))
+  x64, w64, g64 = d(x), LayerWeights(*map(d, w)), d(g)
+  p32 = _grads(layer_math, x, w, g)
+  p64 = _grads(layer_math, x64, w64, g64)
   gen = torch.Generator(device=x.device).manual_seed(0)
   nudge = lambda t: t * (1 + (2 * torch.rand(
       t.shape, generator=gen, device=t.device) - 1) * 2.0 ** -24)
-  nudged = [_grads(layer_math, nudge(x), LayerWeights(*map(nudge, w)),
-                   nudge(g)) for _ in range(ROUNDING_SAMPLES)]
-  ok, report = True, {}
+  copies = [(nudge(x), LayerWeights(*map(nudge, w)), nudge(g))
+            for _ in range(ROUNDING_SAMPLES)]
+  nudged = [_grads(layer_math, *c) for c in copies]
+
+  ok, report, failed = True, {}, []
   for i, name in enumerate(("x",) + LayerWeights._fields):
     err = (got[i] - p32[i]).abs()
     within = err <= GRAD_TOL["atol"] + GRAD_TOL["rtol"] * p32[i].abs()
     spread = max(float((n[i].double() - p64[i]).abs().max())
                  for n in [p32] + nudged)
     excused = ~within & ((got[i].double() - p64[i]).abs() <= 2 * spread)
-    failed = ~within & ~excused
+    failed.append(~within & ~excused)
     report[name] = dict(max_abs_err=float(err.max()), f32_spread=spread,
-                        excused=int(excused.sum()), failed=int(failed.sum()))
-    ok &= not bool(failed.any())
+                        excused=int(excused.sum()), mask_excused=0)
+  if relu is not None or any(bool(f.any()) for f in failed):
+    # the ReLU kinks: run's own mask against the float64 plain one (its
+    # forward runs again only here)
+    pre64 = ffn_preactivation(x64, w64)
+    reach = 2 * max(float((ffn_preactivation(cx, cw).double() - pre64)
+                          .abs().max()) for cx, cw in [(x, w)] + [
+                              c[:2] for c in copies])
+    with torch.no_grad():
+      mask = saved(x, w)[1].h > 0
+    flips = mask != (pre64 > 0)
+    near = pre64.abs() <= reach
+    decided = bool(flips.any()) and not bool((flips & ~near).any())
+    if decided:
+      m32 = _grads(lambda a, b: layer_math(a, b, mask), x, w, g)
+      m64 = _grads(lambda a, b: layer_math(a, b, mask), x64, w64, g64)
+      for i, name in enumerate(("x",) + LayerWeights._fields):
+        masked_ok = (((got[i] - m32[i]).abs() <= GRAD_TOL["atol"]
+                      + GRAD_TOL["rtol"] * m32[i].abs())
+                     | ((got[i].double() - m64[i]).abs()
+                        <= 2 * report[name]["f32_spread"]))
+        excused = failed[i] & (m64[i] != p64[i]) & masked_ok
+        failed[i] = failed[i] & ~excused
+        report[name]["mask_excused"] = int(excused.sum())
+    if relu is not None:
+      relu.update(flips=int(flips.sum()),
+                  flips_within_reach=int((flips & near).sum()), reach=reach,
+                  decided=decided,
+                  flip_preactivations=pre64[flips][:8].tolist())
+  for name, f in zip(report, failed):
+    report[name]["failed"] = int(f.sum())
+    ok &= not bool(f.any())
   return ok, report
 
 

@@ -141,8 +141,8 @@ class Mesh:
   def reduce_metrics(self, metrics: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
     """Scalar metrics of equal-sized local batches made global: keys
-    ending /max and /min by their extremum, `nonfinite` counts by their
-    sum, the rest (means) by their mean."""
+    ending /max and /min by their extremum, counts (`nonfinite`,
+    `_episodes`) by their sum, the rest (means) by their mean."""
     if not self.sharded:
       return metrics
     out = {}
@@ -151,7 +151,7 @@ class Mesh:
         out[k] = self.all_reduce(v, dist.ReduceOp.MAX)
       elif k.endswith("/min"):
         out[k] = self.all_reduce(v, dist.ReduceOp.MIN)
-      elif "nonfinite" in k:
+      elif "nonfinite" in k or k.endswith("_episodes"):
         out[k] = self.all_reduce(v)
       else:
         out[k] = self.all_reduce(v) / self.world

@@ -16,7 +16,7 @@ from vision4leg_torch.algo.ppo import PPOConfig
 from vision4leg_torch.envs.get_env import get_env
 from vision4leg_torch.parallel import mesh as mesh_lib
 from vision4leg_torch.utils.args import get_args, get_params
-from vision4leg_torch.utils.logger import Logger
+from vision4leg_torch.utils.logger import PPO_COLUMNS, Logger
 
 
 def _flag(name: str) -> bool:
@@ -123,7 +123,10 @@ def run_experiment(build_module, eval_params_transform=None):
   params["env"] (sim-to-sim transfer, reference
   ppo_nature_cnn_sim2sim.py:43-60), with the training env's obs
   normalizer, as in the reference.  V4L_BF16_COLLECT=1 runs the
-  collection forward in bfloat16 (the PPO update stays float32).  On a
+  collection forward in bfloat16 (the PPO update stays float32).
+  V4L_FUSED_ATTN=1 runs the collection forward through the fused layer
+  kernel, and with V4L_FUSED_UPDATE=1 also the update and eval (off by
+  default, as in the JAX starter).  On a
   host with several cards the run starts one rank per card (NCCL) and
   shards the envs over them (`choose_world`); both callables are then
   pickled by their import path.  Returns the agent (None under ranks)."""
@@ -164,7 +167,8 @@ def train_run(mesh, args, build_module, eval_params_transform=None):
   if mesh is None or mesh.rank == 0:
     # --resume wins over --overwrite: never delete the checkpoint to resume
     logger = Logger(experiment_name, params["env_name"], args.seed, params,
-                    args.log_dir, args.overwrite and not args.resume)
+                    args.log_dir, args.overwrite and not args.resume,
+                    leading_columns=PPO_COLUMNS)
     work_dir = logger.work_dir
     if mesh is not None:
       logger.log(f"env axis sharded over {mesh.world} ranks "
@@ -190,9 +194,10 @@ def train_run(mesh, args, build_module, eval_params_transform=None):
       reward_scale=meta["reward_scale"],
       inference_dtype=inference_dtype,
       eval_env=eval_env, eval_horizon=eval_horizon,
+      fused_attention=_flag("V4L_FUSED_ATTN"),
       mesh=mesh, device=device,
   )
-  agent.train(resume=args.resume)
+  agent.train(resume=args.resume, stop_epoch=args.stop_epoch)
   if mesh is None:
     return agent
   if logger is not None and logger.tf_writer is not None:

@@ -76,7 +76,9 @@ def run_episodes(env, module, nstate, obs_norm: bool, n_env: int,
     mean, _, _ = module.pi(obs)
     act = low + (torch.tanh(mean) + 1.0) * 0.5 * (high - low)
     states, raw, rew, done, _ = env.step_batch(states, act, gen)
-    ret = ret + rew * (1.0 - done_seen)
+    # selected, not multiplied: a fallen robot stepped on can diverge to
+    # NaN, and 0 * NaN would end its return as NaN (`PPOAgent.evaluate`)
+    ret = ret + torch.where(done_seen > 0, 0.0, rew)
     steps = steps + (1.0 - done_seen)
     done_seen = torch.maximum(done_seen, done.float())
     if record:

@@ -43,6 +43,11 @@ def get_args():
   parser.add_argument("--resume", action="store_true", default=False,
                       help="resume from the run's full checkpoint "
                            "(optimizer + RNG + normalizer state)")
+  parser.add_argument("--stop_epoch", type=int, default=None,
+                      help="end this process before that epoch, on a full "
+                           "checkpoint: one segment of a num_epochs run, "
+                           "continued with --resume (the learning-rate "
+                           "schedule still spans num_epochs)")
   return parser.parse_args()
 
 

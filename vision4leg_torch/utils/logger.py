@@ -34,10 +34,25 @@ except Exception:  # pragma: no cover
     return "\n".join(" | ".join(str(c) for c in r) for r in rows)
 
 
+# the columns of a PPO run's log.csv as the JAX package wrote them
+# (runs/mmdr_moving_10M/A1MoveGround/0/log.csv), in that order; the
+# port's other keys follow them
+PPO_COLUMNS = (
+    "EPOCH", "Total Frames", "Training/policy_loss", "Training/vf_loss",
+    "advs/max", "advs/mean", "advs/min", "advs/std", "log_std/mean",
+    "logprob/mean", "ratio/max", "ratio/min", "Training/avg_reward",
+    "diagnostics/nonfinite_obs", "diagnostics/nonfinite_reward",
+    "Running_Average_Rewards", "Train___Time", "Eval_Rewards_Average",
+    "Eval____Time")
+
+
 class Logger:
   def __init__(self, experiment_id, env_name, seed, params, log_dir,
-               overwrite=False):
+               overwrite=False, leading_columns=()):
+    """leading_columns (e.g. PPO_COLUMNS) open log.csv's header in that
+    order, present from the first row (empty until a value comes)."""
     self.experiment_id = experiment_id
+    self.leading_columns = list(leading_columns)
     self.env_name = env_name
     self.seed = seed
     self.work_dir = osp.join(log_dir, experiment_id, env_name, str(seed))
@@ -134,7 +149,8 @@ class Logger:
     new_keys = [k for k in out
                 if self.csv_fieldnames is None or k not in self.csv_fieldnames]
     if self.csv_fieldnames is None:
-      self.csv_fieldnames = list(out.keys())
+      self.csv_fieldnames = self.leading_columns + [
+          k for k in out if k not in self.leading_columns]
       with open(self.csv_file_path, "w", newline="") as f:
         csv.DictWriter(f, fieldnames=self.csv_fieldnames).writeheader()
     elif new_keys:
