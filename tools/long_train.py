@@ -112,7 +112,7 @@ def run_segment(out: str, starter_argv):
       c.launches = 0
     t = time.time()
     train(self, resume=resume, stop_epoch=stop_epoch)
-    self._sync()
+    self._sync("trained")
     seconds = time.time() - t
     launches = {k: c.launches for k, c in counters.items()}
     end = (self.cfg.num_epochs if stop_epoch is None

@@ -27,7 +27,7 @@ from vision4leg_torch.collector import rollout as rollout_lib
 from vision4leg_torch.data import normalizer as norm
 from vision4leg_torch.envs import wrappers
 from vision4leg_torch.parallel import mesh as mesh_lib
-from vision4leg_torch.utils import flax_msgpack
+from vision4leg_torch.utils import flax_msgpack, profiling
 
 
 def _flatten(x, prefix: str, out: Dict[str, torch.Tensor]):
@@ -255,9 +255,11 @@ class PPOAgent:
     self.phase_seconds: Dict[str, float] = {}
 
   # ------------------------------------------------------------------
-  def _sync(self):
+  def _sync(self, site: str):
+    """Wait for the card; the wait is the host sync `v4l.sync.<site>`."""
     if self.device.type == "cuda":
-      torch.cuda.synchronize(self.device)
+      with profiling.span(f"v4l.sync.{site}"):
+        torch.cuda.synchronize(self.device)
 
   def _log(self, msg: str):
     if not self.writer:
@@ -335,22 +337,25 @@ class PPOAgent:
     """Collect one epoch (episodes capped at max_ep, else
     max_episode_frames) and update on it; returns the metrics (tensors)
     and records the seconds of each phase in `phase_seconds`."""
-    t0 = time.time()
-    steps_in = self.collector_state.ep_steps
-    cs, traj, last_value = self.rollout(self.collector_state, max_ep)
-    self._sync()
-    t1 = time.time()
-    epoch_metrics = self._epoch_metrics(traj, cs.normalizer)
-    epoch_metrics["diagnostics/capped_episodes"] = capped_episodes(
-        steps_in, traj.terminals[..., 0],
-        self.cfg.max_episode_frames if max_ep is None else max_ep).sum()
-    metrics = self.mesh.reduce_metrics(epoch_metrics)
-    ts, up_metrics = self.learner.update_per_epoch(
-        self.train_state, traj, last_value, gen=self.update_gen)
-    self.mesh.check_replicated(self.module, "after an epoch ")
-    self._sync()
-    self.phase_seconds = {"Explore_Time": t1 - t0,
-                          "Update_Time": time.time() - t1}
+    with profiling.span("v4l.epoch"):
+      t0 = time.perf_counter()
+      steps_in = self.collector_state.ep_steps
+      with profiling.span("v4l.collect"):
+        cs, traj, last_value = self.rollout(self.collector_state, max_ep)
+      self._sync("collected")
+      t1 = time.perf_counter()
+      epoch_metrics = self._epoch_metrics(traj, cs.normalizer)
+      epoch_metrics["diagnostics/capped_episodes"] = capped_episodes(
+          steps_in, traj.terminals[..., 0],
+          self.cfg.max_episode_frames if max_ep is None else max_ep).sum()
+      metrics = self.mesh.reduce_metrics(epoch_metrics)
+      with profiling.span("v4l.update"):
+        ts, up_metrics = self.learner.update_per_epoch(
+            self.train_state, traj, last_value, gen=self.update_gen)
+        self.mesh.check_replicated(self.module, "after an epoch ")
+      self._sync("updated")
+      self.phase_seconds = {"Explore_Time": t1 - t0,
+                            "Update_Time": time.perf_counter() - t1}
     metrics.update(up_metrics)
     self.train_state, self.collector_state = ts, cs
     return metrics

@@ -23,6 +23,7 @@ from torch import nn
 from vision4leg_torch.collector.rollout import Transition
 from vision4leg_torch.parallel import mesh as mesh_lib
 from vision4leg_torch.data import gae as gae_lib
+from vision4leg_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +89,7 @@ class MaskedAdam:
   def __init__(self, cfg: OnPolicyConfig, module: nn.Module, which: str,
                base_lr: float, mesh: mesh_lib.Mesh = mesh_lib.ONE):
     self.mesh = mesh
+    self.span = f"v4l.learner.{which}_adam"
     labels = param_labels(module)
     named = [(n, p) for n, p in module.named_parameters()
              if labels[n.split(".")[0]] in (which, "both")]
@@ -115,15 +117,16 @@ class MaskedAdam:
     `self.params` (None for a parameter the loss does not reach).  Under a
     sharded mesh, the gradients are first all-reduced to their mean over
     the ranks."""
-    grads = self.mesh.mean_grads(grads)
-    g = [torch.zeros_like(p) if x is None else x
-         for x, p in zip(grads, self.params)]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
-    clip = self.cfg.grad_clip
-    factor = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
-    g = torch._foreach_mul(g, factor)
-    return adam_step(self.params, g, state, self.lr(state.count),
-                     self.cfg.adam_eps)
+    with profiling.span(self.span):
+      grads = self.mesh.mean_grads(grads)
+      g = [torch.zeros_like(p) if x is None else x
+           for x, p in zip(grads, self.params)]
+      norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+      clip = self.cfg.grad_clip
+      factor = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
+      g = torch._foreach_mul(g, factor)
+      return adam_step(self.params, g, state, self.lr(state.count),
+                       self.cfg.adam_eps)
 
 
 @torch.no_grad()
@@ -246,14 +249,15 @@ class OnPolicyLearner:
     cfg = self.cfg
     T, E = traj.rewards.shape[:2]
     dev = traj.rewards.device
-    advs, rets = self.compute_advantages(traj, last_value)
     mesh = self.mesh
     rows_per_batch, n_batches = minibatches(cfg, T, E * mesh.world)
-    a_mean, a_var = mesh.moments(advs.reshape(-1))
-    adv_metrics = {
-        "advs/mean": a_mean, "advs/std": torch.sqrt(a_var),
-        "advs/max": mesh.all_reduce(advs.max(), dist.ReduceOp.MAX),
-        "advs/min": mesh.all_reduce(advs.min(), dist.ReduceOp.MIN)}
+    with profiling.span("v4l.learner.gae"):
+      advs, rets = self.compute_advantages(traj, last_value)
+      a_mean, a_var = mesh.moments(advs.reshape(-1))
+      adv_metrics = {
+          "advs/mean": a_mean, "advs/std": torch.sqrt(a_var),
+          "advs/max": mesh.all_reduce(advs.max(), dist.ReduceOp.MAX),
+          "advs/min": mesh.all_reduce(advs.min(), dist.ReduceOp.MIN)}
     collected: Dict[str, list] = {}
     for e in range(cfg.opt_epochs):
       if perms is not None:
@@ -263,21 +267,24 @@ class OnPolicyLearner:
       else:
         perm = torch.arange(T, device=dev)
       for i in range(n_batches):
-        idx = perm[i * rows_per_batch:(i + 1) * rows_per_batch]
+        with profiling.span("v4l.learner.minibatch"):
+          idx = perm[i * rows_per_batch:(i + 1) * rows_per_batch]
 
-        def take(x):
-          return x[idx].reshape((rows_per_batch * E,) + x.shape[2:])
+          def take(x):
+            return x[idx].reshape((rows_per_batch * E,) + x.shape[2:])
 
-        batch = (take(traj.obs), take(traj.acts),
-                 take(advs[..., None]), take(rets[..., None]),
-                 take(traj.values), take(traj.log_probs),
-                 take(traj.means), take(traj.stds))
-        ts, m = self._minibatch_update(ts, batch)
-        for k, v in m.items():
-          collected.setdefault(k, []).append(v)
-    stacked = mesh.reduce_metrics(
-        {k: torch.stack(v) for k, v in collected.items()})
-    metrics = {k: v.mean() for k, v in stacked.items()}
+          with profiling.span("v4l.learner.gather"):
+            batch = (take(traj.obs), take(traj.acts),
+                     take(advs[..., None]), take(rets[..., None]),
+                     take(traj.values), take(traj.log_probs),
+                     take(traj.means), take(traj.stds))
+          ts, m = self._minibatch_update(ts, batch)
+          for k, v in m.items():
+            collected.setdefault(k, []).append(v)
+    with profiling.span("v4l.learner.metrics"):
+      stacked = mesh.reduce_metrics(
+          {k: torch.stack(v) for k, v in collected.items()})
+      metrics = {k: v.mean() for k, v in stacked.items()}
     metrics.update(adv_metrics)
     return ts.replace(epoch=ts.epoch + 1), metrics
 

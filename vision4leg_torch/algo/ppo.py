@@ -21,6 +21,7 @@ from vision4leg_torch.algo.on_policy_base import (OnPolicyConfig,
                                                   OnPolicyLearner, TrainState,
                                                   normal_entropy,
                                                   normal_log_prob)
+from vision4leg_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,42 +37,47 @@ class PPOLearner(OnPolicyLearner):
     cfg = self.cfg
     obs, acts, advs, est_rets, old_values, old_logp, _, _ = batch
     module = ts.params
-    # per-minibatch advantage normalization (ppo.py:148)
-    advs = self.normalize_advantages(advs)
 
     # --- critic first (ppo.py:152) ---
-    values = self.apply_v(module, obs)
-    if cfg.clipped_value_loss:
-      clipped = old_values + torch.clamp(values - old_values,
-                                         -cfg.clip_para, cfg.clip_para)
-      vf_loss = 0.5 * torch.maximum((values - est_rets) ** 2,
-                                    (clipped - est_rets) ** 2).mean()
-    else:
-      vf_loss = torch.mean((values - est_rets) ** 2)
-    grads = torch.autograd.grad(vf_loss, self.vf_tx.params,
-                                allow_unused=True)
+    with profiling.span("v4l.learner.vf_forward"):
+      # per-minibatch advantage normalization (ppo.py:148)
+      advs = self.normalize_advantages(advs)
+      values = self.apply_v(module, obs)
+      if cfg.clipped_value_loss:
+        clipped = old_values + torch.clamp(values - old_values,
+                                           -cfg.clip_para, cfg.clip_para)
+        vf_loss = 0.5 * torch.maximum((values - est_rets) ** 2,
+                                      (clipped - est_rets) ** 2).mean()
+      else:
+        vf_loss = torch.mean((values - est_rets) ** 2)
+    with profiling.span("v4l.learner.vf_backward"):
+      grads = torch.autograd.grad(vf_loss, self.vf_tx.params,
+                                  allow_unused=True)
     vf_opt = self.vf_tx.update(grads, ts.vf_opt)
 
     # --- actor on the updated params (ppo.py:153) ---
-    mean, std, logstd = self.apply_pi(module, obs)
-    log_prob = normal_log_prob(mean, std, acts)
-    ent = normal_entropy(std)
-    ratio = torch.exp(log_prob - old_logp)
-    surr = ratio * advs
-    surr_clip = torch.clamp(ratio, 1.0 - cfg.clip_para,
-                            1.0 + cfg.clip_para) * advs
-    pf_loss = -torch.mean(torch.minimum(surr, surr_clip))
-    pf_loss = pf_loss - cfg.entropy_coeff * ent.mean()
-    grads = torch.autograd.grad(pf_loss, self.pf_tx.params,
-                                allow_unused=True)
+    with profiling.span("v4l.learner.pf_forward"):
+      mean, std, logstd = self.apply_pi(module, obs)
+      log_prob = normal_log_prob(mean, std, acts)
+      ent = normal_entropy(std)
+      ratio = torch.exp(log_prob - old_logp)
+      surr = ratio * advs
+      surr_clip = torch.clamp(ratio, 1.0 - cfg.clip_para,
+                              1.0 + cfg.clip_para) * advs
+      pf_loss = -torch.mean(torch.minimum(surr, surr_clip))
+      pf_loss = pf_loss - cfg.entropy_coeff * ent.mean()
+    with profiling.span("v4l.learner.pf_backward"):
+      grads = torch.autograd.grad(pf_loss, self.pf_tx.params,
+                                  allow_unused=True)
     pf_opt = self.pf_tx.update(grads, ts.pf_opt)
 
-    metrics = {
-        "Training/policy_loss": pf_loss.detach(),
-        "Training/vf_loss": vf_loss.detach(),
-        "logprob/mean": log_prob.detach().mean(),
-        "log_std/mean": logstd.detach().mean(),
-        "ratio/max": ratio.detach().max(),
-        "ratio/min": ratio.detach().min(),
-    }
+    with profiling.span("v4l.learner.metrics"):
+      metrics = {
+          "Training/policy_loss": pf_loss.detach(),
+          "Training/vf_loss": vf_loss.detach(),
+          "logprob/mean": log_prob.detach().mean(),
+          "log_std/mean": logstd.detach().mean(),
+          "ratio/max": ratio.detach().max(),
+          "ratio/min": ratio.detach().min(),
+      }
     return ts.replace(pf_opt=pf_opt, vf_opt=vf_opt), metrics

@@ -24,6 +24,7 @@ import torch
 from vision4leg_torch.data import normalizer as norm
 from vision4leg_torch.parallel import mesh as mesh_lib
 from vision4leg_torch.parallel.mesh import take_rows
+from vision4leg_torch.utils import profiling
 
 
 class Transition(NamedTuple):
@@ -120,68 +121,77 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
 
   @torch.no_grad()
   def step_fn(cs: CollectorState, max_ep: int):
-    nstate = cs.normalizer
-    if obs_norm:
-      nstate = norm.update(nstate, cs.raw_obs[..., :proprio_dim], mesh)
-    obs = normalize(nstate, cs.raw_obs)
+    with profiling.span("v4l.collector.step"):
+      with profiling.span("v4l.collector.policy"):
+        nstate = cs.normalizer
+        if obs_norm:
+          nstate = norm.update(nstate, cs.raw_obs[..., :proprio_dim], mesh)
+        obs = normalize(nstate, cs.raw_obs)
 
-    if act_fn is not None:
-      act, log_prob, env_act, mean, std = act_fn(obs, cs.gen)
-      value = apply_v(obs)
-    else:
-      (mean, std, _), value = apply_pi_v(obs)
-      noise = mesh.own_rows(lambda n: torch.randn(
-          (n,) + mean.shape[1:], generator=cs.gen, device=mean.device),
-          mean.shape[0])
-      act = mean + std * noise
-      log_prob = torch.sum(
-          -0.5 * noise ** 2 - torch.log(std) - 0.5 * math.log(2 * math.pi),
-          dim=-1, keepdim=True)
-      env_act = action_low + (torch.tanh(act) + 1.0) * 0.5 * (
-          action_high - action_low)
+        if act_fn is not None:
+          act, log_prob, env_act, mean, std = act_fn(obs, cs.gen)
+          value = apply_v(obs)
+        else:
+          (mean, std, _), value = apply_pi_v(obs)
+          noise = mesh.own_rows(lambda n: torch.randn(
+              (n,) + mean.shape[1:], generator=cs.gen, device=mean.device),
+              mean.shape[0])
+          act = mean + std * noise
+          log_prob = torch.sum(
+              -0.5 * noise ** 2 - torch.log(std)
+              - 0.5 * math.log(2 * math.pi), dim=-1, keepdim=True)
+          env_act = action_low + (torch.tanh(act) + 1.0) * 0.5 * (
+              action_high - action_low)
 
-    env_states, next_raw, rew, done, _ = env.step_from(
-        cs.env_states, env_act, mesh.own_rows(
-            lambda n: env.draw_for_step(n, cs.env_states, cs.gen),
-            env_act.shape[0]))
-    rew = rew * reward_scale
-    ep_steps = cs.ep_steps + 1
-    tl_done = ep_steps >= env_time_limit
-    done = done | tl_done
-    surpass = ep_steps >= max_ep
-    terminal = done | surpass
-    ep_return = cs.ep_return + rew
-    if bool(surpass.any()):
-      last_value = apply_v(normalize(nstate, next_raw))[..., 0]
-      rew = rew + discount * last_value * surpass
-    fin_sum = cs.finished_returns_sum + torch.sum(ep_return * terminal)
-    fin_cnt = cs.finished_count + torch.sum(terminal)
-    fin_len = cs.finished_len_sum + torch.sum(ep_steps.float() * terminal)
+      env_states, next_raw, rew, done, _ = env.step_from(
+          cs.env_states, env_act, mesh.own_rows(
+              lambda n: env.draw_for_step(n, cs.env_states, cs.gen),
+              env_act.shape[0]))
+      rew = rew * reward_scale
+      ep_steps = cs.ep_steps + 1
+      tl_done = ep_steps >= env_time_limit
+      done = done | tl_done
+      surpass = ep_steps >= max_ep
+      terminal = done | surpass
+      ep_return = cs.ep_return + rew
+      with profiling.span("v4l.sync.cap"):
+        capped = bool(surpass.any())
+      if capped:
+        with profiling.span("v4l.collector.policy"):
+          last_value = apply_v(normalize(nstate, next_raw))[..., 0]
+        rew = rew + discount * last_value * surpass
+      fin_sum = cs.finished_returns_sum + torch.sum(ep_return * terminal)
+      fin_cnt = cs.finished_count + torch.sum(terminal)
+      fin_len = cs.finished_len_sum + torch.sum(ep_steps.float() * terminal)
 
-    # reset only the finished envs (the global reset's rows of this
-    # rank's), then scatter them into the batch
-    counts = [int(c) for c in
-              mesh.all_gather(terminal.sum().reshape(1)).reshape(-1)]
-    mine, total = counts[mesh.rank], sum(counts)
-    if total:
-      draws = take_rows(env.draw_for_reset(total, cs.gen),
-                        sum(counts[:mesh.rank]), mine, total)
-      if mine:
-        idx = torch.nonzero(terminal)[:, 0]
-        reset_states, reset_obs = env.reset_from(mine, draws)
-        env_states = _scatter(env_states, reset_states, idx)
-        next_raw = next_raw.index_copy(0, idx, reset_obs)
-    ep_steps = torch.where(terminal, 0, ep_steps).to(torch.int32)
-    ep_return = torch.where(terminal, 0.0, ep_return)
+      # reset only the finished envs (the global reset's rows of this
+      # rank's), then scatter them into the batch
+      with profiling.span("v4l.sync.reset_counts"):
+        counts = [int(c) for c in
+                  mesh.all_gather(terminal.sum().reshape(1)).reshape(-1)]
+      mine, total = counts[mesh.rank], sum(counts)
+      if total:
+        with profiling.span("v4l.collector.reset"):
+          draws = take_rows(env.draw_for_reset(total, cs.gen),
+                            sum(counts[:mesh.rank]), mine, total)
+          if mine:
+            profiling.count("v4l.collector.envs_reset", mine)
+            with profiling.span("v4l.sync.reset_rows"):
+              idx = torch.nonzero(terminal)[:, 0]
+            reset_states, reset_obs = env.reset_from(mine, draws)
+            env_states = _scatter(env_states, reset_states, idx)
+            next_raw = next_raw.index_copy(0, idx, reset_obs)
+      ep_steps = torch.where(terminal, 0, ep_steps).to(torch.int32)
+      ep_return = torch.where(terminal, 0.0, ep_return)
 
-    cs = cs.replace(env_states=env_states, raw_obs=next_raw,
-                    ep_steps=ep_steps, ep_return=ep_return,
-                    normalizer=nstate, finished_returns_sum=fin_sum,
-                    finished_count=fin_cnt, finished_len_sum=fin_len)
-    tr = Transition(obs=obs, acts=act, log_probs=log_prob, values=value,
-                    rewards=rew[..., None], terminals=terminal[..., None],
-                    time_limits=tl_done[..., None], means=mean, stds=std)
-    return cs, tr
+      cs = cs.replace(env_states=env_states, raw_obs=next_raw,
+                      ep_steps=ep_steps, ep_return=ep_return,
+                      normalizer=nstate, finished_returns_sum=fin_sum,
+                      finished_count=fin_cnt, finished_len_sum=fin_len)
+      tr = Transition(obs=obs, acts=act, log_probs=log_prob, values=value,
+                      rewards=rew[..., None], terminals=terminal[..., None],
+                      time_limits=tl_done[..., None], means=mean, stds=std)
+      return cs, tr
 
   @torch.no_grad()
   def rollout(cs: CollectorState, max_ep: int | None = None):
@@ -194,9 +204,11 @@ def make_rollout_fn(env, apply_pi_v: Callable, apply_v: Callable,
     for _ in range(horizon):
       cs, tr = step_fn(cs, max_ep)
       trs.append(tr)
-    traj = Transition(*(torch.stack(x) for x in zip(*trs)))
-    obs = normalize(cs.normalizer, cs.raw_obs)
-    last_value = apply_v(obs)[..., 0] * (1.0 - traj.terminals[-1, :, 0].float())
+    with profiling.span("v4l.collector.stack"):
+      traj = Transition(*(torch.stack(x) for x in zip(*trs)))
+      obs = normalize(cs.normalizer, cs.raw_obs)
+      last_value = apply_v(obs)[..., 0] * (
+          1.0 - traj.terminals[-1, :, 0].float())
     return cs, traj, last_value
 
   return rollout

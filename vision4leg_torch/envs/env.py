@@ -62,6 +62,7 @@ from vision4leg_torch.ops import physics_kernel
 from vision4leg_torch.physics import contact, engine, maths
 from vision4leg_torch.robots import a1, a1_model, action_filter
 from vision4leg_torch.robots import a1_params as P
+from vision4leg_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -402,6 +403,10 @@ class A1GymEnv:
   def reset_from(self, n_env: int, all_draws
                  ) -> Tuple[EnvState, torch.Tensor]:
     """The reset of n_env envs from their `draw_for_reset`."""
+    with profiling.span("v4l.env.reset"):
+      return self._reset_from(n_env, all_draws)
+
+  def _reset_from(self, n_env: int, all_draws):
     cfg = self.cfg
     draws, frame_draws = all_draws
     frame_idx, interp_delay = self._frame_idx(n_env, frame_draws)
@@ -482,14 +487,15 @@ class A1GymEnv:
     if cfg.empty_image:
       return torch.zeros(E, 64, 64, device=self.device)
     rot = maths.quat_to_mat(state.robot.phys.quat)
-    depth = cam.render_depth(
-        state.robot.phys.pos, rot, state.terrain,
-        show_subgoals=cfg.subgoal_reward is not None,
-        max_boxes=terr.RENDER_BOX_CAPS.get(cfg.terrain_type,
-                                           cam.MAX_RENDER_BOXES),
-        flat=self._flat, far_t=10.5 if cfg.depth_image else 20.0)
-    if cfg.depth_image:
-      depth = cam.preprocess_depth(depth, blind.num, blind.idx)
+    with profiling.span("v4l.env.camera"):
+      depth = cam.render_depth(
+          state.robot.phys.pos, rot, state.terrain,
+          show_subgoals=cfg.subgoal_reward is not None,
+          max_boxes=terr.RENDER_BOX_CAPS.get(cfg.terrain_type,
+                                             cam.MAX_RENDER_BOXES),
+          flat=self._flat, far_t=10.5 if cfg.depth_image else 20.0)
+      if cfg.depth_image:
+        depth = cam.preprocess_depth(depth, blind.num, blind.idx)
     return depth
 
   def _image_obs(self, state: EnvState):
@@ -636,16 +642,23 @@ class A1GymEnv:
 
   def step_from(self, states: EnvState, actions, draws: StepDraws):
     """`step_batch` with its draws given."""
+    with profiling.span("v4l.env.step"):
+      return self._step_from(states, actions, draws)
+
+  def _step_from(self, states: EnvState, actions, draws: StepDraws):
     cfg = self.cfg
-    states, act12 = self._step_pre(states, actions, draws)
+    with profiling.span("v4l.env.pre"):
+      states, act12 = self._step_pre(states, actions, draws)
+      if self.kernel_capable:
+        pos_xy = states.robot.phys.pos[:, :2]
+        boxes = self._pruned_boxes(states.terrain.boxes, pos_xy)
+        spheres = self._pruned_spheres(states.terrain.obstacle_spheres,
+                                       pos_xy)
+        fric_box = states.dyn.lateral_friction
+        fric_ground = fric_box * cfg.fric_coeff[0]
     if not self.kernel_capable:
       rs, pen = self._engine_window(states, act12)
       return self._step_post(states, rs, act12, pen, draws)
-    pos_xy = states.robot.phys.pos[:, :2]
-    boxes = self._pruned_boxes(states.terrain.boxes, pos_xy)
-    spheres = self._pruned_spheres(states.terrain.obstacle_spheres, pos_xy)
-    fric_box = states.dyn.lateral_friction
-    fric_ground = fric_box * cfg.fric_coeff[0]
     rs, pen = self._robot_window(
         self.model, states.robot, act12, states.dyn, boxes, spheres,
         fric_ground, fric_box, cfg.num_action_repeat * cfg.substeps,
@@ -658,12 +671,13 @@ class A1GymEnv:
     boxes pruned by the base xy before the step, then the contact read of
     the post-window world.  Returns (robot state, penetration (E, P, 2))."""
     cfg = self.cfg
-    cfn = self._contact_fn(states.terrain, states.dyn,
-                           states.robot.phys.pos[:, :2])
-    rs, _ = a1.robot_step(self.model, states.robot, act12, states.dyn, cfn,
-                          cfg.num_action_repeat * cfg.substeps,
-                          cfg.enable_action_interpolation)
-    return rs, self._engine_pen(rs, cfn)
+    with profiling.span("v4l.window"):
+      cfn = self._contact_fn(states.terrain, states.dyn,
+                             states.robot.phys.pos[:, :2])
+      rs, _ = a1.robot_step(self.model, states.robot, act12, states.dyn,
+                            cfn, cfg.num_action_repeat * cfg.substeps,
+                            cfg.enable_action_interpolation)
+      return rs, self._engine_pen(rs, cfn)
 
   def _engine_pen(self, rs: a1.RobotState, cfn):
     """The [ground, obstacle] penetration (E, P, 2) of the robot's contact
@@ -673,53 +687,55 @@ class A1GymEnv:
     return cfn(cpos, cvel, self.model.cp_radius)[1]
 
   def _step_post(self, state: EnvState, rs, act12, pen, draws: StepDraws):
-    cfg = self.cfg
-    ground_pen, box_pen = pen[..., 0], pen[..., 1]
-    nonfoot_ground = torch.any((ground_pen > 0)
-                               & (self.model.cp_is_foot < 0.5), dim=-1)
-    nonfoot_contact = nonfoot_ground | torch.any(box_pen > 0, dim=-1)
-    state = state.replace(robot=rs)
-    task_state = tasks.update(state.task, rs.phys.pos)
-    m, imu, disp = self._sensor_readings(state)
-    push = lambda new, hist: torch.cat([new[:, None], hist[:, :-1]], dim=1)
-    state = state.replace(
-        task=task_state, motor_hist=push(m, state.motor_hist),
-        imu_hist=push(imu, state.imu_hist),
-        disp_hist=push(disp, state.disp_hist),
-        last_action_hist=push(act12, state.last_action_hist))
-    task_cfg = self._task_cfg()
-    is_done = tasks.done(task_cfg, task_state, rs.phys.pos, rs.phys.quat,
-                         nonfoot_contact)
-    rew, trackers = tasks.reward(
-        task_cfg, task_state, maths.wxyz_to_xyzw(rs.phys.quat),
-        rs.observed_torques, is_done, state.terrain.subgoals,
-        state.terrain.goal_pos)
-    state = state.replace(task=task_state.replace(subgoal_trackers=trackers),
-                          step_counter=state.step_counter + 1)
-    if self._redraws_dir:
-      # RandoDirWrapper.observation (env_builder.py:127-142): every
-      # dir_update_interval observations the direction is redrawn; it
-      # steers the next step's reward and this step's observation
-      rd, vec = wrappers.rando_dir_advance(
-          wrappers.RandoDirState(state.dir_angle, state.dir_count),
-          draws.dir_angle, cfg.dir_update_interval)
-      state = state.replace(dir_angle=rd.angle, dir_count=rd.step_count,
-                            task=state.task.replace(target_vel_dir=vec))
-    if cfg.get_image:
-      capture = (state.step_counter % cfg.get_image_interval) == 0
-      if self._each_step_head:
-        # per-step random visual delay (JAX env.py:554-562)
-        shifted = torch.cat([draws.frame_head.to(torch.int32)[:, None],
-                             state.frame_idx[:, :3] + cfg.frame_extract],
-                            dim=1)
-        state = state.replace(frame_idx=select(capture, shifted,
-                                               state.frame_idx))
-      depth = self._render(state, draws.blind)
-      # the whole ring is copied, as the JAX env's concatenate does
-      frames = torch.cat([depth[:, None], state.frames[:, :-1]], dim=1)
-      state = state.replace(frames=select(capture, frames, state.frames))
-    info = {"subgoals_hit": torch.sum(1.0 - trackers, dim=-1)}
-    return state, self._observation(state), rew, is_done, info
+    """Sensors, task, reward, camera and observation after the window."""
+    with profiling.span("v4l.env.post"):
+      cfg = self.cfg
+      ground_pen, box_pen = pen[..., 0], pen[..., 1]
+      nonfoot_ground = torch.any((ground_pen > 0)
+                                 & (self.model.cp_is_foot < 0.5), dim=-1)
+      nonfoot_contact = nonfoot_ground | torch.any(box_pen > 0, dim=-1)
+      state = state.replace(robot=rs)
+      task_state = tasks.update(state.task, rs.phys.pos)
+      m, imu, disp = self._sensor_readings(state)
+      push = lambda new, hist: torch.cat([new[:, None], hist[:, :-1]], dim=1)
+      state = state.replace(
+          task=task_state, motor_hist=push(m, state.motor_hist),
+          imu_hist=push(imu, state.imu_hist),
+          disp_hist=push(disp, state.disp_hist),
+          last_action_hist=push(act12, state.last_action_hist))
+      task_cfg = self._task_cfg()
+      is_done = tasks.done(task_cfg, task_state, rs.phys.pos, rs.phys.quat,
+                           nonfoot_contact)
+      rew, trackers = tasks.reward(
+          task_cfg, task_state, maths.wxyz_to_xyzw(rs.phys.quat),
+          rs.observed_torques, is_done, state.terrain.subgoals,
+          state.terrain.goal_pos)
+      state = state.replace(task=task_state.replace(subgoal_trackers=trackers),
+                            step_counter=state.step_counter + 1)
+      if self._redraws_dir:
+        # RandoDirWrapper.observation (env_builder.py:127-142): every
+        # dir_update_interval observations the direction is redrawn; it
+        # steers the next step's reward and this step's observation
+        rd, vec = wrappers.rando_dir_advance(
+            wrappers.RandoDirState(state.dir_angle, state.dir_count),
+            draws.dir_angle, cfg.dir_update_interval)
+        state = state.replace(dir_angle=rd.angle, dir_count=rd.step_count,
+                              task=state.task.replace(target_vel_dir=vec))
+      if cfg.get_image:
+        capture = (state.step_counter % cfg.get_image_interval) == 0
+        if self._each_step_head:
+          # per-step random visual delay (JAX env.py:554-562)
+          shifted = torch.cat([draws.frame_head.to(torch.int32)[:, None],
+                               state.frame_idx[:, :3] + cfg.frame_extract],
+                              dim=1)
+          state = state.replace(frame_idx=select(capture, shifted,
+                                                 state.frame_idx))
+        depth = self._render(state, draws.blind)
+        # the whole ring is copied, as the JAX env's concatenate does
+        frames = torch.cat([depth[:, None], state.frames[:, :-1]], dim=1)
+        state = state.replace(frames=select(capture, frames, state.frames))
+      info = {"subgoals_hit": torch.sum(1.0 - trackers, dim=-1)}
+      return state, self._observation(state), rew, is_done, info
 
   def _task_cfg(self) -> tasks.TaskConfig:
     cfg = self.cfg

@@ -52,6 +52,7 @@ from vision4leg_torch.ops import physics_kernel
 from vision4leg_torch.physics import engine, maths
 from vision4leg_torch.robots import a1
 from vision4leg_torch.robots import a1_params as P
+from vision4leg_torch.utils import profiling
 
 MPC_WEIGHTS = (5, 5, 0.2, 0, 0, 10, 0., 0., 1., 1., 1., 0., 0)
 
@@ -177,8 +178,8 @@ class A1MPCGymEnv(A1GymEnv):
   def draw_for_reset(self, n_env: int, gen: torch.Generator) -> MpcResetDraws:
     return self.draw_reset(n_env, gen)
 
-  def reset_from(self, n_env: int, draws: MpcResetDraws
-                 ) -> Tuple[MpcEnvState, torch.Tensor]:
+  def _reset_from(self, n_env: int, draws: MpcResetDraws
+                  ) -> Tuple[MpcEnvState, torch.Tensor]:
     cfg = self.cfg
     E = n_env
     pos = torch.cat([self._init_pos[:2] + draws.init_jitter,
@@ -271,21 +272,23 @@ class A1MPCGymEnv(A1GymEnv):
     ang (E,).  Returns (cs', the swing legs' joint targets (E, 12), the
     stance torques (E, 12), the stance mask (E, 12)): the hybrid window's
     command, tau_ff and tau_mask."""
-    foot_contacts = torch.amax(pen[:, :4], dim=-1) > 0.0   # (E, 4)
-    cs = ctrl.gait_update(self.gait_cfg, cs, t, foot_contacts)
-    quat = rs.phys.quat
-    cs = ctrl.estimator_update(cs, maths.quat_rotate_inv(quat, rs.phys.lin))
-    rpy = maths.quat_to_rpy(quat)
-    rpy_rate = maths.quat_rotate_inv(quat, rs.phys.ang)
-    feet = lk.foot_positions_base_frame(rs.phys.joint_q)
-    cs, swing_q = ctrl.swing_action(cs, self.gait_cfg, rpy_rate[:, 2], lin,
-                                    ang, feet)
-    stance_tau, contact_state, cs = ctrl.stance_action_warm(
-        self.mpc_cfg, self.mpc_canon, cs, rpy, rpy_rate, feet,
-        rs.phys.joint_q, lin, ang)
-    stance_mask = torch.repeat_interleave(
-        contact_state.to(stance_tau.dtype), 3, dim=-1)
-    return cs, swing_q, stance_tau, stance_mask
+    with profiling.span("v4l.mpc.tick"):
+      foot_contacts = torch.amax(pen[:, :4], dim=-1) > 0.0   # (E, 4)
+      cs = ctrl.gait_update(self.gait_cfg, cs, t, foot_contacts)
+      quat = rs.phys.quat
+      cs = ctrl.estimator_update(cs,
+                                 maths.quat_rotate_inv(quat, rs.phys.lin))
+      rpy = maths.quat_to_rpy(quat)
+      rpy_rate = maths.quat_rotate_inv(quat, rs.phys.ang)
+      feet = lk.foot_positions_base_frame(rs.phys.joint_q)
+      cs, swing_q = ctrl.swing_action(cs, self.gait_cfg, rpy_rate[:, 2],
+                                      lin, ang, feet)
+      stance_tau, contact_state, cs = ctrl.stance_action_warm(
+          self.mpc_cfg, self.mpc_canon, cs, rpy, rpy_rate, feet,
+          rs.phys.joint_q, lin, ang)
+      stance_mask = torch.repeat_interleave(
+          contact_state.to(stance_tau.dtype), 3, dim=-1)
+      return cs, swing_q, stance_tau, stance_mask
 
   def step_batch(self, states: MpcEnvState, actions, gen: torch.Generator):
     """Step every env: one exact KKT inverse, then policy_freq ticks of
@@ -302,9 +305,10 @@ class A1MPCGymEnv(A1GymEnv):
     """A step's one draw: the camera's blind spots (None without it)."""
     return self.draw_blind_spots(n_env, gen) if self.cfg.get_image else None
 
-  def step_from(self, states: MpcEnvState, actions,
-                blind: Optional[BlindSpots]):
-    """`step_batch` with its draw given."""
+  def _step_from(self, states: MpcEnvState, actions,
+                 blind: Optional[BlindSpots]):
+    """`step_batch` with its draw given (`A1GymEnv.step_from` opens the
+    env step's span)."""
     cfg = self.cfg
     E = actions.shape[0]
     acts, lin, ang = self._commands(actions)
@@ -352,11 +356,12 @@ class A1MPCGymEnv(A1GymEnv):
   def _refresh_kkt(self, cs: ctrl.ControllerState, rs: a1.RobotState):
     """cs with the warm QP's KKT inverse computed exactly from the
     yawless pose and the feet of `rs`."""
-    rpy = maths.quat_to_rpy(rs.phys.quat)
-    feet = lk.foot_positions_base_frame(rs.phys.joint_q)
-    kinv = convex_mpc.kkt_inverse(
-        self.mpc_cfg, self.mpc_canon,
-        torch.cat([rpy[:, :2], torch.zeros_like(rpy[:, 2:])], 1), feet)
+    with profiling.span("v4l.mpc.kkt"):
+      rpy = maths.quat_to_rpy(rs.phys.quat)
+      feet = lk.foot_positions_base_frame(rs.phys.joint_q)
+      kinv = convex_mpc.kkt_inverse(
+          self.mpc_cfg, self.mpc_canon,
+          torch.cat([rpy[:, :2], torch.zeros_like(rpy[:, 2:])], 1), feet)
     return cs.replace(qp_warm=cs.qp_warm.replace(kinv=kinv))
 
   def _window_ticks(self, states: MpcEnvState, cs, lin, ang, n_ticks=None):

@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from vision4leg_torch.ops import nvcc
+from vision4leg_torch.utils import profiling
 
 # shapes the kernels take, within the 227 KB of shared memory a block may
 # use: the forward holds a tile of G samples and two weight panels (208.5
@@ -456,17 +457,20 @@ class _FusedLayerAD(torch.autograd.Function):
           "second derivatives through the unfused layer")
     saved = ctx.saved_tensors
     n = len(Residuals._fields)
-    return fused_transformer_layer_bwd(
-        Residuals(*saved[:n]), g.contiguous(), LayerWeights(*saved[n:]))
+    g = g.contiguous()
+    with profiling.span("v4l.layer.bwd"):
+      return fused_transformer_layer_bwd(
+          Residuals(*saved[:n]), g, LayerWeights(*saved[n:]))
 
 
 def fused_transformer_layer_ad(x, w: LayerWeights):
   """Differentiable fused layer: where a gradient is needed, the kernel
   forward saving residuals and the backward kernel on them; elsewhere
   (no_grad: collection, bootstraps, eval) the inference forward."""
-  if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *w)):
-    return _FusedLayerAD.apply(x, *w)
-  return fused_transformer_layer(x, w)
+  with profiling.span("v4l.layer.fwd"):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *w)):
+      return _FusedLayerAD.apply(x, *w)
+    return fused_transformer_layer(x, w)
 
 
 # tests/test_pallas.py's tolerance for the JAX fused layer's gradients

@@ -22,6 +22,7 @@ from vision4leg_torch.ops import physics_envlast as pe
 from vision4leg_torch.physics import engine
 from vision4leg_torch.physics.model import Model
 from vision4leg_torch.robots import a1
+from vision4leg_torch.utils import profiling
 
 SOURCE = nvcc.SOURCES["physics_window"]
 
@@ -219,13 +220,12 @@ def robot_window(model: Model, rs: a1.RobotState, command, dyn, boxes,
   across the window.
   """
   _hybrid(tau_ff, tau_mask)
-  if command.device.type == "cuda":
-    return _launch(model, rs, command, dyn, boxes, spheres, fric_ground,
-                   fric_box, n_substeps, interpolate, tau_ff, tau_mask)
-  if command.device.type != "cpu":
+  if command.device.type not in ("cuda", "cpu"):
     raise ValueError(f"robot_window: unsupported device {command.device}")
-  return window_plain(model, rs, command, dyn, boxes, spheres, fric_ground,
-                      fric_box, n_substeps, interpolate, tau_ff, tau_mask)
+  run = _launch if command.device.type == "cuda" else window_plain
+  with profiling.span("v4l.window"):
+    return run(model, rs, command, dyn, boxes, spheres, fric_ground,
+               fric_box, n_substeps, interpolate, tau_ff, tau_mask)
 
 
 robot_window.launches = 0
