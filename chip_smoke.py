@@ -573,6 +573,65 @@ def time_ms(fn, n=25, warm=3):
   return s.elapsed_time(e) / n
 
 
+def layer_wrapper_counts():
+  """The fused layer's launch counters (forward, backward): the calls its
+  wrappers made, each of which launched a kernel or put one in a CUDA
+  graph being captured."""
+  from vision4leg_torch.ops import attention as att
+  return (att.fused_transformer_layer.launches,
+          att.fused_transformer_layer_bwd.launches)
+
+
+def layer_kernels(fn):
+  """fn() under a profiler of the card: (fn's result, (forward, backward)
+  kernels of the fused layer the card ran, counted by name from the
+  device trace, a CUDA graph's replays included)."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    out = fn()
+    torch.cuda.synchronize()
+  names = [e.name() for e in prof.profiler.kineto_results.events()
+           if str(e.device_type()).endswith("CUDA")]
+  return out, (sum("transformer_layer_kernel" in n for n in names),
+               sum("transformer_layer_bwd_kernel" in n for n in names))
+
+
+class UpdateKernels:
+  """While entered, each PPO `update_per_epoch` (the base class's, which
+  replays its minibatch step as a CUDA graph on one card) runs under
+  `layer_kernels`: its layer kernels are counted from the device trace,
+  and the calls its wrappers made (the eager steps' and the captures')
+  are kept apart.  `launches(counts)` turns the wrapper counts of a path
+  into its launches: the counts outside the updates, plus the kernels
+  inside them.  The updates' times include the profiler's cost."""
+
+  def __enter__(self):
+    from vision4leg_torch.algo.on_policy_base import OnPolicyLearner
+    self.calls, self.kernels = [0, 0], [0, 0]
+    update = OnPolicyLearner.update_per_epoch
+
+    def traced(learner, *args, **kw):
+      before = layer_wrapper_counts()
+      out, kernels = layer_kernels(lambda: update(learner, *args, **kw))
+      for i, (a, b) in enumerate(zip(before, layer_wrapper_counts())):
+        self.calls[i] += b - a
+        self.kernels[i] += kernels[i]
+      return out
+    OnPolicyLearner.update_per_epoch = traced
+    self._undo = lambda: setattr(OnPolicyLearner, "update_per_epoch",
+                                 update)
+    return self
+
+  def __exit__(self, *exc):
+    self._undo()
+
+  def launches(self, counts):
+    return tuple(c - k + n for c, k, n in zip(counts, self.calls,
+                                              self.kernels))
+
+
 def window_kernel_ms(args, fn=None, n=25, warm=3):
   """Milliseconds per launch of the window kernel alone on the window
   inputs `args`: `physics_kernel._launch` packs them once, and its launch
@@ -1013,9 +1072,12 @@ def phase_training(label, env, meta, params, build_module, epochs,
   equal to the first.  `eval_env` evaluates on another env (sim2sim).  On
   the MPC env the window runs policy_freq hybrid
   launches a step, and each reset (the rollout's partial resets, the
-  eval's) one settle launch, counted apart.  `check(agent)` runs after
-  the counts are read.  Returns the launch counts, each epoch's numbers
-  and what `check` returned (`checked`)."""
+  eval's) one settle launch, counted apart.  The updates' layer kernels
+  are counted from a device trace (`UpdateKernels`: on one card the
+  update replays its minibatch step as a CUDA graph, whose kernels no
+  wrapper call launches).  `check(agent)` runs after the counts are read.
+  Returns the launch counts, each epoch's numbers and what `check`
+  returned (`checked`)."""
   import csv
 
   import torch
@@ -1054,15 +1116,16 @@ def phase_training(label, env, meta, params, build_module, epochs,
     att.fused_transformer_layer.launches = 0
     att.fused_transformer_layer_bwd.launches = 0
     t = time.perf_counter()
-    a.train()
-    torch.cuda.synchronize()
+    with UpdateKernels() as updates:
+      a.train()
+      torch.cuda.synchronize()
     dt = time.perf_counter() - t
     settles = (env.settle_windows - settles) if mpc else 0
+    layer, layer_bwd = updates.launches(layer_wrapper_counts())
     launches = {"physics_window": pk.robot_window.launches - settles,
                 "physics_window_settle": settles,
-                "transformer_layer": att.fused_transformer_layer.launches,
-                "transformer_layer_bwd":
-                    att.fused_transformer_layer_bwd.launches}
+                "transformer_layer": layer,
+                "transformer_layer_bwd": layer_bwd}
     horizon = a.horizon
     rows, n_batches = minibatches(cfg, horizon, NUM_ENVS)
     n_mb, mb = cfg.opt_epochs * n_batches, rows * NUM_ENVS
@@ -1080,7 +1143,10 @@ def phase_training(label, env, meta, params, build_module, epochs,
         + (f"; layer 4 x {horizon} pi_v + 2 last value + 4 x {n_mb} update "
            f"at B={mb} (saving mode), 2 x {eval_horizon} eval at "
            f"B={n_eval}; layer backward 4 x {n_mb} update at B={mb})"
-           if fused else "; no fused layer)"))
+           if fused else "; no fused layer)")
+        + f"; the updates' layer kernels (forward, backward) "
+          f"{tuple(updates.kernels)} from the device trace, their wrapper "
+          f"calls {tuple(updates.calls)}")
     if launches != want or (mpc and settles < epochs):
       raise AssertionError(f"[{label}] launch counts {launches} != {want}")
     checked = check(a) if check is not None else None
@@ -1213,14 +1279,14 @@ def fused_update_check(net, obs, params, seed=0):
 
 
 def phase_fused_update(label, net, obs, params, card):
-  """`fused_update_check` on the card, held to FUSED_UPDATE_BAND; the
-  launches it makes are comparisons and leave the counts as they were."""
+  """`fused_update_check` on the card, held to FUSED_UPDATE_BAND, its
+  backward kernels counted from a device trace; the launches it makes are
+  comparisons and leave the counts as they were."""
   from vision4leg_torch.ops import attention as att
-  before = (att.fused_transformer_layer.launches,
-            att.fused_transformer_layer_bwd.launches)
+  before = layer_wrapper_counts()
   t = time.perf_counter()
-  diff, moved, m_diff = fused_update_check(net, obs, params)
-  bwd = att.fused_transformer_layer_bwd.launches - before[1]
+  (diff, moved, m_diff), (_, bwd) = layer_kernels(
+      lambda: fused_update_check(net, obs, params))
   att.fused_transformer_layer.launches, \
       att.fused_transformer_layer_bwd.launches = before
   T, B = obs.shape[:2]
@@ -1228,7 +1294,7 @@ def phase_fused_update(label, net, obs, params, card):
       f"of B={B}, from one state; largest parameter difference "
       f"{diff:.3e} (band {FUSED_UPDATE_BAND:g}; the unfused update moved "
       f"the parameters by up to {moved:.3e}); largest metric difference "
-      f"{m_diff:.3e}; {bwd} backward launches; "
+      f"{m_diff:.3e}; {bwd} backward kernels (device trace); "
       f"{time.perf_counter() - t:.2f}s")
   if bwd != 4 * T:
     raise AssertionError(f"[{label}] the fused update launched the layer "
@@ -4255,7 +4321,8 @@ def phase_long_run(card, dev):
   held to the path's: per epoch the window 16 and the layer 4 x 16 + 2
   + 4 x 48, its backward 4 x 48 (no episode reaches the cap of 999 in
   160 steps: no other bootstrap); the eval at epoch 9 the window and 2
-  layers a step.  Checks log.csv and the best snapshot.  Returns the
+  layers a step; the updates' layer kernels counted from a device trace
+  (`UpdateKernels`).  Checks log.csv and the best snapshot.  Returns the
   launches and the phase's numbers."""
   import contextlib
   import csv
@@ -4294,9 +4361,10 @@ def phase_long_run(card, dev):
       att.fused_transformer_layer.launches = 0
       att.fused_transformer_layer_bwd.launches = 0
       t = time.perf_counter()
-      with open(table, "w") as out, contextlib.redirect_stdout(out):
+      with open(table, "w") as out, contextlib.redirect_stdout(out), \
+          UpdateKernels() as updates:
         agent = common.run_experiment(starter.build_module)
-      torch.cuda.synchronize()
+        torch.cuda.synchronize()
       dt = time.perf_counter() - t
       if agent.logger.tf_writer is not None:
         agent.logger.tf_writer.close()    # before its directory goes
@@ -4307,15 +4375,17 @@ def phase_long_run(card, dev):
           os.environ.pop(k, None)
         else:
           os.environ[k] = v
+    layer, layer_bwd = updates.launches(layer_wrapper_counts())
     launches = {"physics_window": pk.robot_window.launches,
-                "transformer_layer": att.fused_transformer_layer.launches,
-                "transformer_layer_bwd":
-                    att.fused_transformer_layer_bwd.launches}
+                "transformer_layer": layer,
+                "transformer_layer_bwd": layer_bwd}
     log(f"[long run] the starter's run_experiment, {LONG_EPOCHS} epochs of "
         f"{LONG_CONFIG} at {NUM_ENVS} envs, fused layer everywhere, an "
         f"eval of {eval_steps} steps x {common.num_eval_envs(params)} at "
         f"epoch {eval_every - 1}, on {card}: {dt:.2f}s; launches "
-        f"{launches}, expected {want}")
+        f"{launches}, expected {want}; the updates' layer kernels "
+        f"{tuple(updates.kernels)} from the device trace, their wrapper "
+        f"calls {tuple(updates.calls)}")
     if launches != want:
       raise AssertionError(f"[long run] launch counts {launches} != {want}")
     work = os.path.join(tmp, "long", params["env_name"], "0")

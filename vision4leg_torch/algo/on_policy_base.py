@@ -16,6 +16,7 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -99,6 +100,9 @@ class MaskedAdam:
     self.base_lr = base_lr
     self.updates_per_epoch = max(
         cfg.opt_epochs * (cfg.epoch_frames // cfg.batch_size), 1)
+    # the reciprocals of the bias corrections as device tensors while a
+    # graph is captured (algo/step_graph.py), else None
+    self.inv_bias: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
   def lr(self, count: int) -> float:
     if not self.cfg.lr_decay:
@@ -126,25 +130,48 @@ class MaskedAdam:
       factor = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
       g = torch._foreach_mul(g, factor)
       return adam_step(self.params, g, state, self.lr(state.count),
-                       self.cfg.adam_eps)
+                       self.cfg.adam_eps, self.inv_bias)
+
+
+def bias_corrections(count: int) -> Tuple[float, float]:
+  """Adam's two bias corrections after `count` updates."""
+  return 1.0 - MaskedAdam.B1 ** count, 1.0 - MaskedAdam.B2 ** count
+
+
+def inverse_bias_corrections(count: int) -> Tuple[float, float]:
+  """The bias corrections' reciprocals as the card's division of float32
+  tensors by a Python scalar takes them: 1 / c in double precision,
+  rounded to float32."""
+  return tuple(float(np.float32(1.0 / c)) for c in bias_corrections(count))
 
 
 @torch.no_grad()
-def adam_step(params, g, state: AdamState, lr: float,
-              eps: float) -> AdamState:
+def adam_step(params, g, state: AdamState, lr: float, eps: float,
+              inv_bias: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> AdamState:
   """optax's scale_by_adam(b1 0.9, b2 0.999, eps) then -lr, applied to
   `params` in place: eps outside the square root, bias-corrected
-  moments."""
+  moments.  The moments are updated in place too (their addresses stay
+  fixed, as a captured graph needs), so the returned state shares them
+  with `state`.  The bias corrections are Python scalars, or, where
+  `inv_bias` is given (a graph's, filled before each replay), their
+  reciprocals in float32 0-d tensors, multiplied by: on the card the
+  scalar division is that product, bit for bit."""
   b1, b2 = MaskedAdam.B1, MaskedAdam.B2
-  mu = torch._foreach_mul(state.mu, b1)
+  mu, nu = state.mu, state.nu
+  torch._foreach_mul_(mu, b1)
   torch._foreach_add_(mu, g, alpha=1.0 - b1)
-  nu = torch._foreach_mul(state.nu, b2)
+  torch._foreach_mul_(nu, b2)
   torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
   count = state.count + 1
-  denom = torch._foreach_div(nu, 1.0 - b2 ** count)
+  if inv_bias is None:
+    c1, c2 = bias_corrections(count)
+    denom, step = torch._foreach_div(nu, c2), torch._foreach_div(mu, c1)
+  else:
+    denom = torch._foreach_mul(nu, inv_bias[1])
+    step = torch._foreach_mul(mu, inv_bias[0])
   torch._foreach_sqrt_(denom)
   torch._foreach_add_(denom, eps)
-  step = torch._foreach_div(mu, 1.0 - b1 ** count)
   torch._foreach_div_(step, denom)
   torch._foreach_add_(params, step, alpha=-lr)
   return AdamState(count=count, mu=mu, nu=nu)
@@ -225,6 +252,15 @@ class OnPolicyLearner:
   def _minibatch_update(self, ts: TrainState, batch):
     raise NotImplementedError
 
+  # the CUDA graphs of the minibatch step while `update_per_epoch` runs
+  _graphs = None
+
+  def _step_graphs(self, dev: torch.device):
+    """The CUDA graphs that replay this learner's minibatch step through
+    one `update_per_epoch` call on `dev` (algo/step_graph.py), or None
+    where the step runs eagerly: here, always."""
+    return None
+
   # ------------------------------------------------------------------
   def compute_advantages(self, traj: Transition, last_value):
     cfg = self.cfg
@@ -258,29 +294,34 @@ class OnPolicyLearner:
           "advs/mean": a_mean, "advs/std": torch.sqrt(a_var),
           "advs/max": mesh.all_reduce(advs.max(), dist.ReduceOp.MAX),
           "advs/min": mesh.all_reduce(advs.min(), dist.ReduceOp.MIN)}
+    fields = (traj.obs, traj.acts, advs[..., None], rets[..., None],
+              traj.values, traj.log_probs, traj.means, traj.stds)
+    # one batch for the call, each minibatch gathered into it: a captured
+    # step reads its inputs where its capture found them
+    batch = tuple(torch.empty((rows_per_batch * E,) + x.shape[2:],
+                              dtype=x.dtype, device=dev) for x in fields)
     collected: Dict[str, list] = {}
-    for e in range(cfg.opt_epochs):
-      if perms is not None:
-        perm = torch.as_tensor(perms[e], device=dev).long()
-      elif cfg.shuffle:
-        perm = torch.randperm(T, generator=gen, device=dev)
-      else:
-        perm = torch.arange(T, device=dev)
-      for i in range(n_batches):
-        with profiling.span("v4l.learner.minibatch"):
-          idx = perm[i * rows_per_batch:(i + 1) * rows_per_batch]
-
-          def take(x):
-            return x[idx].reshape((rows_per_batch * E,) + x.shape[2:])
-
-          with profiling.span("v4l.learner.gather"):
-            batch = (take(traj.obs), take(traj.acts),
-                     take(advs[..., None]), take(rets[..., None]),
-                     take(traj.values), take(traj.log_probs),
-                     take(traj.means), take(traj.stds))
-          ts, m = self._minibatch_update(ts, batch)
-          for k, v in m.items():
-            collected.setdefault(k, []).append(v)
+    self._graphs = self._step_graphs(dev)
+    try:
+      for e in range(cfg.opt_epochs):
+        if perms is not None:
+          perm = torch.as_tensor(perms[e], device=dev).long()
+        elif cfg.shuffle:
+          perm = torch.randperm(T, generator=gen, device=dev)
+        else:
+          perm = torch.arange(T, device=dev)
+        for i in range(n_batches):
+          with profiling.span("v4l.learner.minibatch"):
+            idx = perm[i * rows_per_batch:(i + 1) * rows_per_batch]
+            with profiling.span("v4l.learner.gather"):
+              for x, b in zip(fields, batch):
+                torch.index_select(
+                    x, 0, idx, out=b.view((rows_per_batch,) + x.shape[1:]))
+            ts, m = self._minibatch_update(ts, batch)
+            for k, v in m.items():
+              collected.setdefault(k, []).append(v)
+    finally:
+      self._graphs = None
     with profiling.span("v4l.learner.metrics"):
       stacked = mesh.reduce_metrics(
           {k: torch.stack(v) for k, v in collected.items()})

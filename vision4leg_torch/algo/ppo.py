@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from vision4leg_torch.algo import step_graph
 from vision4leg_torch.algo.on_policy_base import (OnPolicyConfig,
                                                   OnPolicyLearner, TrainState,
                                                   normal_entropy,
@@ -33,7 +34,26 @@ class PPOConfig(OnPolicyConfig):
 
 class PPOLearner(OnPolicyLearner):
 
+  # what the step's graphs share across update_per_epoch calls
+  _capture_stream = None
+
+  def _step_graphs(self, dev: torch.device):
+    """On one CUDA device the step is replayed as a CUDA graph
+    (algo/step_graph.py); on the CPU, or under a sharded mesh (whose
+    all-reduces the host makes), it runs eagerly."""
+    if dev.type != "cuda" or self.mesh.sharded:
+      return None
+    if self._capture_stream is None:
+      self._capture_stream = step_graph.CaptureStream(dev)
+    return step_graph.StepGraphs(self._capture_stream,
+                                 {"vf_opt": self.vf_tx, "pf_opt": self.pf_tx})
+
   def _minibatch_update(self, ts: TrainState, batch):
+    if self._graphs is None:
+      return self._step(ts, batch)
+    return self._graphs.step(self._step, ts, batch)
+
+  def _step(self, ts: TrainState, batch):
     cfg = self.cfg
     obs, acts, advs, est_rets, old_values, old_logp, _, _ = batch
     module = ts.params

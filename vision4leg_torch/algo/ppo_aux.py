@@ -30,6 +30,10 @@ class PPOAuxLearner(PPOLearner):
     super().__init__(cfg, apply_pi, apply_v, module)
     self.apply_pi_aux = apply_pi_aux
 
+  def _step_graphs(self, dev: torch.device):
+    """None: this step is not PPO's graphed one, so it runs eagerly."""
+    return None
+
   def _minibatch_update(self, ts: TrainState, batch):
     cfg = self.cfg
     obs, acts, advs, est_rets, old_values, old_logp, _, _ = batch
